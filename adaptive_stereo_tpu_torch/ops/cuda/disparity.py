@@ -1,0 +1,58 @@
+"""Fused soft-argmin + FCS: CUDA kernel wrapper and its plain version.
+
+Counterpart of adaptive_stereo_tpu/ops/pallas/disparity.py
+(soft_argmin_fcs_pallas). The kernel is csrc/disparity.cu. The plain
+version, soft_argmin_fcs_ref, composes ops/soft_argmin.py and ops/fcs.py.
+The wrapper takes the plain version for CPU tensors only; on CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..fcs import feature_contrast_mean
+from ..soft_argmin import soft_argmin
+from . import _build
+
+__all__ = ["MAX_DISP", "soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
+
+# The kernel holds a pixel's D costs in registers (STEREO_MAX_DISP in
+# csrc/disparity.cu). Every supported config has D <= 24.
+MAX_DISP = 64
+
+
+def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (soft_argmin, feature_contrast_mean) of a (B, D, H, W)
+    cost, both float32 (B, H, W)."""
+    cost = cost.float()
+    return soft_argmin(cost, dim=1), feature_contrast_mean(cost)
+
+
+def soft_argmin_fcs_cuda(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expected disparity and FCS, each (B, H, W) float32, from a float32
+    (B, D, H, W) pre-softmax cost with 3 <= D <= MAX_DISP."""
+    if cost.device.type == "cpu":
+        return soft_argmin_fcs_ref(cost)
+    _build.require_cuda(cost, "cost", (torch.float32,))
+    _build.forward_only("soft_argmin_fcs_cuda", cost)
+    if cost.dim() != 4:
+        raise ValueError(f"cost must be (B, D, H, W), got {tuple(cost.shape)}")
+    b, d, h, w = cost.shape
+    if not 3 <= d <= MAX_DISP:
+        raise ValueError(f"the kernel takes 3 <= D <= {MAX_DISP}, got D={d}")
+    disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
+    fcs = torch.empty_like(disp)
+    lib = _build.library()
+    with torch.cuda.device(cost.device):
+        status = lib.stereo_soft_argmin_fcs_forward(
+            cost.data_ptr(), disp.data_ptr(), fcs.data_ptr(), b, d, h * w,
+            _build.stream_of(cost))
+    _build.check(status, "stereo_soft_argmin_fcs_forward")
+    soft_argmin_fcs_cuda.launches += 1
+    return disp, fcs
+
+
+soft_argmin_fcs_cuda.launches = 0

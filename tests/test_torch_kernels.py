@@ -1,0 +1,142 @@
+"""The CUDA kernels' plain versions vs the TPU kernels (Pallas, interpreter
+mode on the CPU, as tests/test_pallas_kernels.py runs them).
+
+On CPU tensors each wrapper of adaptive_stereo_tpu_torch/ops/cuda takes its
+plain version; these tests hold that plain version against the Pallas
+kernel it stands for, float32 on both sides, on numpy inputs from a seed.
+The kernels themselves build and run only on the card (chip_smoke.py).
+
+Tolerances: cost volume bitwise equal (one float32 subtraction per
+element). Soft-argmin + FCS 1e-5 absolute and relative (float32 reductions
+over D in different orders). Aggregation 1e-4 absolute and relative, the
+band tests/test_pallas_kernels.py uses for the Pallas kernel against its jnp
+twin (five stacked float32 convolutions of 864 terms each).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptive_stereo_tpu.ops.pallas import (
+    aggregate_cost_volume_pallas,
+    aggregate_cost_volume_ref as jax_aggregate_ref,
+    difference_cost_volume_pallas,
+    soft_argmin_fcs_pallas,
+)
+from adaptive_stereo_tpu_torch.ops.cuda import (
+    aggregate_cost_volume_cuda,
+    difference_cost_volume_cuda,
+    soft_argmin_fcs_cuda,
+)
+
+DISP_TOL = dict(rtol=1e-5, atol=1e-5)
+AGG_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _agg_inputs(rng, b, d, h, w, scale=0.1):
+    params = {
+        "kernels": rng.randn(4, 3, 3, 3, 32, 32) * scale,
+        "biases": rng.randn(4, 32) * scale,
+        "scales": 1 + rng.randn(4, 32) * scale,
+        "bn_biases": rng.randn(4, 32) * scale,
+        "final_kernel": rng.randn(3, 3, 3, 32, 1) * scale,
+        "final_bias": rng.randn(1) * scale,
+    }
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    stats = ((rng.randn(4, 32) * 0.05).astype(np.float32),
+             (1 + rng.rand(4, 32) * 0.1).astype(np.float32))
+    cost = rng.randn(b, d, h, w, 32).astype(np.float32)
+    return cost, params, stats
+
+
+def _jax(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _torch(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("b,h,w,c,d", [(1, 4, 12, 8, 5), (1, 5, 16, 32, 12),
+                                       (1, 4, 6, 4, 8)])
+def test_cost_volume_plain_matches_pallas(b, h, w, c, d):
+    rng = np.random.RandomState(w)
+    fl = rng.randn(b, h, w, c).astype(np.float32)
+    fr = rng.randn(b, h, w, c).astype(np.float32)
+    ref = difference_cost_volume_pallas(jnp.asarray(fl), jnp.asarray(fr), d, interpret=True)
+    out = difference_cost_volume_cuda(torch.from_numpy(fl), torch.from_numpy(fr), d)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("b,d,h,w", [(2, 12, 8, 16), (1, 12, 4, 8)])
+def test_soft_argmin_fcs_plain_matches_pallas(b, d, h, w):
+    cost = (np.random.RandomState(h).randn(b, d, h, w) * 5).astype(np.float32)
+    disp_ref, fcs_ref = soft_argmin_fcs_pallas(jnp.asarray(cost), interpret=True)
+    disp, fcs = soft_argmin_fcs_cuda(torch.from_numpy(cost))
+    assert disp.dtype == fcs.dtype == torch.float32
+    np.testing.assert_allclose(disp.numpy(), np.asarray(disp_ref), **DISP_TOL)
+    np.testing.assert_allclose(fcs.numpy(), np.asarray(fcs_ref), **DISP_TOL)
+
+
+def test_soft_argmin_fcs_plain_duplicate_max_matches_pallas():
+    cost = np.zeros((1, 6, 2, 2), np.float32)
+    cost[:, 2] = 3.0
+    cost[:, 4] = 3.0
+    disp_ref, fcs_ref = soft_argmin_fcs_pallas(jnp.asarray(cost), interpret=True)
+    disp, fcs = soft_argmin_fcs_cuda(torch.from_numpy(cost))
+    np.testing.assert_allclose(fcs.numpy(), np.asarray(fcs_ref), atol=1e-6)
+    np.testing.assert_allclose(disp.numpy(), np.asarray(disp_ref), **DISP_TOL)
+
+
+@pytest.mark.parametrize("b,d,h,w", [(1, 12, 4, 8), (2, 5, 3, 12)])
+def test_aggregation_plain_matches_pallas_eval(b, d, h, w):
+    cost, params, stats = _agg_inputs(np.random.RandomState(b * 100 + d), b, d, h, w)
+    ref, mu_r, var_r = aggregate_cost_volume_pallas(
+        jnp.asarray(cost), _jax(params), tuple(map(jnp.asarray, stats)), False,
+        interpret=True)
+    out, mu, var = aggregate_cost_volume_cuda(
+        torch.from_numpy(cost), _torch(params), tuple(map(torch.from_numpy, stats)),
+        train=False)
+    assert out.shape == (b, d, h, w) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **AGG_TOL)
+    # Eval mode echoes the running statistics.
+    np.testing.assert_array_equal(mu.numpy(), np.asarray(mu_r))
+    np.testing.assert_array_equal(var.numpy(), np.asarray(var_r))
+
+
+def test_aggregation_plain_train_statistics_match_jax():
+    """The plain version also serves train mode on CPU tensors: batch
+    statistics with the fast variance, as the JAX twin computes them."""
+    cost, params, stats = _agg_inputs(np.random.RandomState(11), 2, 6, 4, 8)
+    ref, mu_r, var_r = jax_aggregate_ref(
+        jnp.asarray(cost), _jax(params), tuple(map(jnp.asarray, stats)), True)
+    out, mu, var = aggregate_cost_volume_cuda(
+        torch.from_numpy(cost), _torch(params), tuple(map(torch.from_numpy, stats)),
+        train=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **AGG_TOL)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(mu_r), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(var.numpy(), np.asarray(var_r), rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_never_take_the_plain_version_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    validates it and raises here (a meta tensor is not a CUDA tensor); it
+    never falls back to the plain version, and counts no launch."""
+    wrappers = (difference_cost_volume_cuda, aggregate_cost_volume_cuda, soft_argmin_fcs_cuda)
+    before = [w.launches for w in wrappers]
+    f = torch.empty(1, 4, 8, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        difference_cost_volume_cuda(f, f, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        soft_argmin_fcs_cuda(torch.empty(1, 12, 4, 8, device="meta"))
+    _, params, stats = _agg_inputs(np.random.RandomState(0), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        aggregate_cost_volume_cuda(torch.empty(1, 12, 4, 8, 32, device="meta"),
+                                   _torch(params), tuple(map(torch.from_numpy, stats)),
+                                   train=False)
+    with pytest.raises(NotImplementedError):
+        aggregate_cost_volume_cuda(torch.empty(1, 12, 4, 8, 32, device="meta"),
+                                   _torch(params), tuple(map(torch.from_numpy, stats)),
+                                   train=True)
+    assert [w.launches for w in wrappers] == before
