@@ -1,6 +1,6 @@
 """StereoNet as PyTorch nn.Modules (counterpart of adaptive_stereo_tpu/models/)."""
 
-from .aggregation import aggregation_args, apply_aggregation
+from .aggregation import aggregation_args, apply_aggregation, apply_coarse_head
 from .stereo_net import (
     BasicBlock,
     EdgeAwareRefinement,
@@ -21,6 +21,7 @@ __all__ = [
     "StereoNet",
     "aggregation_args",
     "apply_aggregation",
+    "apply_coarse_head",
     "coarse_num_disparities",
     "load_reference_folder",
     "random_init_",

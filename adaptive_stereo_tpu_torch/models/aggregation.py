@@ -1,10 +1,12 @@
-"""The aggregation stack's weights, gathered for the kernel.
+"""The aggregation stack's weights, gathered for the kernels.
 
 Counterpart of adaptive_stereo_tpu/models/pallas_aggregation.py
-(apply_pallas_aggregation): the stack's parameters live in the reference
-layout on StereoNet (filter.{i}.0.0 Conv3d, filter.{i}.0.1 BatchNorm3d,
-conv3d_alone), and this module hands them to the kernel in the JAX layout
-(DHWIO kernels, stacked per-channel vectors).
+(apply_pallas_aggregation, apply_pallas_coarse_head): the stack's
+parameters live in the reference layout on StereoNet (filter.{i}.0.0
+Conv3d, filter.{i}.0.1 BatchNorm3d, conv3d_alone), and this module hands
+them to the kernels in the JAX layout (DHWIO kernels, stacked per-channel
+vectors). Eval mode only: the running-statistics update of train mode comes
+with the model's train forward.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.cuda import aggregate_cost_volume_cuda
+from ..ops.cuda import aggregate_cost_volume_cuda, coarse_head_cuda
 
 
 def _dhwio(weight: torch.Tensor) -> torch.Tensor:
@@ -49,3 +51,15 @@ def apply_aggregation(stereo_net: nn.Module, cost: torch.Tensor) -> torch.Tensor
     out, _, _ = aggregate_cost_volume_cuda(cost, params, run_stats, train=False,
                                            eps=stereo_net.filter[0][0][1].eps)
     return out
+
+
+def apply_coarse_head(stereo_net: nn.Module, f_l: torch.Tensor,
+                      f_r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode coarse head (cost volume, aggregation, soft-argmin + FCS) of
+    (B, h, w, 32) features through the fused CUDA kernel (its plain version
+    for CPU tensors). Returns (disp, fcs), each (B, h, w) float32."""
+    params, run_stats = aggregation_args(stereo_net)
+    disp, fcs, _, _ = coarse_head_cuda(f_l, f_r, params, run_stats, train=False,
+                                       num_disp=stereo_net.num_disp,
+                                       eps=stereo_net.filter[0][0][1].eps)
+    return disp, fcs

@@ -3,7 +3,8 @@
 Counterpart of adaptive_stereo_tpu/models/stereo_net.py with
 StereoModel(use_pallas=True, pallas_aggregation=True): the coarse head runs
 the three CUDA kernels of ops/cuda (cost volume, aggregation stack, fused
-soft-argmin + FCS); the feature tower and the full-resolution refinement are
+soft-argmin + FCS), or with fused_coarse_head=True the one fused coarse-head
+kernel; the feature tower and the full-resolution refinement are
 F.conv2d.
 
 The modules carry the reference's state-dict keys (downsample.{i},
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
 from ..ops.cuda import difference_cost_volume_cuda, soft_argmin_fcs_cuda
-from .aggregation import apply_aggregation
+from .aggregation import apply_aggregation, apply_coarse_head
 
 LEAKY_SLOPE = 0.2
 BN_EPS = 1e-5
@@ -158,22 +159,30 @@ class EdgeAwareRefinement(nn.Module):
 
 class StereoNet(nn.Module):
     """Cost volume + aggregation + soft-argmin/FCS + refinement, reference
-    stereo_net.py:137-207, with the three coarse-head stages on the CUDA
-    kernels of ops/cuda.
+    stereo_net.py:137-207, with the coarse head on the CUDA kernels of
+    ops/cuda: the three stages in turn, or (fused_coarse_head=True) the one
+    fused kernel. Both paths use the same parameters.
 
-    forward(left_img, left_features, right_features, side) returns
+    forward(left_img, left_features, right_features, side, output_cost_volume)
+    returns
       pred_disp_{side}/{input_scale + k}: 2^k * bilinear(coarse), (B, H, W, 1)
       pred_disp_{side}/{input_scale}:     refined disparity, (B, H, W, 1)
       fcs_{side}/{input_scale + k}:       per-pixel FCS, (B, h, w)
+      cost_volume_{side}/{input_scale + k}: the float32 pre-softmax cost
+                                          (B, D, h, w), if output_cost_volume
+    (JAX stereo_net.py:238-296). output_cost_volume takes the three-stage
+    path, which materialises the cost, whatever fused_coarse_head says.
     """
 
     def __init__(self, k: int, r: int = 1, input_scale: int = 0, maxdisp: int = 192,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 fused_coarse_head: bool = False):
         super().__init__()
         self.k = k
         self.input_scale = input_scale
         self.maxdisp = maxdisp
         self.dtype = dtype
+        self.fused_coarse_head = fused_coarse_head
         self.filter = nn.ModuleList(
             nn.Sequential(
                 nn.Sequential(nn.Conv3d(32, 32, 3, 1, 1, device=device),
@@ -190,16 +199,26 @@ class StereoNet(nn.Module):
         return coarse_num_disparities(self.maxdisp, self.input_scale, self.k)
 
     def forward(self, left_img: torch.Tensor, left_features: torch.Tensor,
-                right_features: torch.Tensor, side: str = "l") -> Dict[str, torch.Tensor]:
+                right_features: torch.Tensor, side: str = "l",
+                output_cost_volume: bool = False) -> Dict[str, torch.Tensor]:
         if self.training:
             raise NotImplementedError(
                 "only the eval forward is ported; call .eval() first")
+        coarse_scale = self.input_scale + self.k
+        if self.fused_coarse_head and not output_cost_volume:
+            fl, fr = left_features, right_features
+            if self.dtype is not None:
+                fl, fr = fl.to(self.dtype), fr.to(self.dtype)
+            pred, fcs = apply_coarse_head(self, fl, fr)
+            return self.finish({f"fcs_{side}/{coarse_scale}": fcs}, pred, left_img, side)
         cost = difference_cost_volume_cuda(left_features, right_features, self.num_disp)
         if self.dtype is not None:
             cost = cost.to(self.dtype)
         cost = apply_aggregation(self, cost).float()
         pred, fcs = soft_argmin_fcs_cuda(cost)
-        outputs = {f"fcs_{side}/{self.input_scale + self.k}": fcs}
+        outputs = {f"fcs_{side}/{coarse_scale}": fcs}
+        if output_cost_volume:
+            outputs[f"cost_volume_{side}/{coarse_scale}"] = cost
         return self.finish(outputs, pred, left_img, side)
 
     def finish(self, outputs: Dict[str, torch.Tensor], pred: torch.Tensor,
@@ -217,14 +236,16 @@ class StereoNet(nn.Module):
 class StereoModel(nn.Module):
     """Feature tower on both views + the StereoNet head, one forward
     (reference train.py:19-22). Built on `device` ("cuda" unless the caller
-    passes "cpu"); the CUDA kernels serve the coarse head there."""
+    passes "cpu"); the CUDA kernels serve the coarse head there, three in
+    turn or, with fused_coarse_head=True, the fused one."""
 
     def __init__(self, k: int, input_scale: int = 0, maxdisp: int = 192,
-                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None):
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 fused_coarse_head: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.feature_net = FeatureExtractorNetwork(k, dtype, dev)
-        self.stereo_net = StereoNet(k, 1, input_scale, maxdisp, dtype, dev)
+        self.stereo_net = StereoNet(k, 1, input_scale, maxdisp, dtype, dev, fused_coarse_head)
 
     def load_state_dicts(self, feature_sd, stereo_sd) -> "StereoModel":
         """Load the reference-layout pair (strict), e.g. from
@@ -234,10 +255,10 @@ class StereoModel(nn.Module):
         return self
 
     def forward(self, left_img: torch.Tensor, right_img: torch.Tensor,
-                side: str = "l") -> Dict[str, torch.Tensor]:
+                side: str = "l", output_cost_volume: bool = False) -> Dict[str, torch.Tensor]:
         fl = self.feature_net(left_img)
         fr = self.feature_net(right_img)
-        return self.stereo_net(left_img, fl, fr, side)
+        return self.stereo_net(left_img, fl, fr, side, output_cost_volume)
 
 
 @torch.no_grad()

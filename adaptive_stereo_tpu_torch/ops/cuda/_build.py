@@ -49,7 +49,11 @@ _SIGNATURES = {
     "stereo_cost_volume_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stereo_conv3d_bn_leaky_forward": [_P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "stereo_conv3d_stats_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "stereo_bn_stats_finalize": [_P, _I, _I, _I, _P, _P, _P],
+    "stereo_bn_leaky_apply": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
     "stereo_soft_argmin_fcs_forward": [_P, _P, _P, _I, _I, _I, _P],
+    "stereo_coarse_head_forward": [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P],
 }
 
 

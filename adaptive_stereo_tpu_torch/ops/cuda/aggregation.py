@@ -15,8 +15,11 @@ and return (out (B, D, H, W) in the compute dtype, mu (4, 32), var (4, 32)).
 
 aggregate_cost_volume_ref is the plain version (mirrors
 aggregate_cost_volume_ref of the JAX package). aggregate_cost_volume_cuda
-launches csrc/aggregation.cu once per layer on CUDA tensors (eval mode
-only), and takes the plain version for CPU tensors only.
+launches csrc/aggregation.cu on CUDA tensors, and takes the plain version
+for CPU tensors only. Eval mode is one launch per layer (five); train mode
+adds, per BatchNorm layer, the batch statistics (a deterministic reduction
+across blocks, csrc/bn_stats.cuh) and the normalisation as launches of
+their own (thirteen in all).
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ __all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref"]
 LEAKY_SLOPE = 0.2
 NUM_BN_LAYERS = 4
 CHANNELS = 32
+# Elements per tile of train-mode partial sums, and threads per block of the
+# kernels that write them (STEREO_BN_TILE in csrc/bn_stats.cuh).
+THREADS = 256
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -41,6 +47,35 @@ def _per_channel(v: torch.Tensor) -> torch.Tensor:
 
 def _oidhw(kernel_dhwio: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return kernel_dhwio.to(dtype).permute(4, 3, 0, 1, 2)
+
+
+def _stack_weights(params: Dict[str, torch.Tensor],
+                  run_stats: Tuple[torch.Tensor, torch.Tensor], cdtype: torch.dtype):
+    """The stack's weights as the kernels take them, each validated on CUDA:
+    four (kernel (3,3,3,32,32) in cdtype, bias (32,), (running mean, running
+    var, bn scale, bn bias) each (32,) float32) and the final (kernel
+    (3,3,3,32,1) in cdtype, bias (1,) float32)."""
+    def weights(kernel, cout):
+        k = kernel.to(cdtype).contiguous()
+        _build.require_cuda(k, "kernel", shape=(3, 3, 3, CHANNELS, cout))
+        return k
+
+    def f32(v, name, n):
+        v = v.float().contiguous()
+        _build.require_cuda(v, name, shape=(n,))
+        return v
+
+    layers = []
+    for i in range(NUM_BN_LAYERS):
+        layers.append((weights(params["kernels"][i], CHANNELS),
+                       f32(params["biases"][i], "bias", CHANNELS),
+                       tuple(f32(v, name, CHANNELS) for v, name in (
+                           (run_stats[0][i], "running mean"),
+                           (run_stats[1][i], "running var"),
+                           (params["scales"][i], "bn scale"),
+                           (params["bn_biases"][i], "bn bias")))))
+    final = (weights(params["final_kernel"], 1), f32(params["final_bias"], "final bias", 1))
+    return layers, final
 
 
 def aggregate_cost_volume_ref(
@@ -83,14 +118,13 @@ def aggregate_cost_volume_cuda(
     train: bool,
     eps: float = 1e-5,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The aggregation stack through csrc/aggregation.cu: five launches, one
-    per layer. Eval mode only on CUDA (train=True raises)."""
+    """The aggregation stack through csrc/aggregation.cu. Eval mode: five
+    launches, one per layer, normalising with run_stats, which come back as
+    mu/var. Train mode: per BatchNorm layer the conv with per-block sums,
+    the reduction to the batch statistics (fast variance) and the
+    normalisation, then the final layer; mu/var are the batch statistics."""
     if cost.device.type == "cpu":
         return aggregate_cost_volume_ref(cost, params, run_stats, train, eps)
-    if train:
-        raise NotImplementedError(
-            "aggregate_cost_volume_cuda: train-mode batch statistics are not "
-            "implemented on CUDA yet (eval mode only)")
     _build.require_cuda(cost, "cost", tuple(_build.DTYPE_CODES))
     if cost.dim() != 5 or cost.shape[-1] != CHANNELS:
         raise ValueError(f"cost must be (B, D, H, W, {CHANNELS}), got {tuple(cost.shape)}")
@@ -98,45 +132,53 @@ def aggregate_cost_volume_cuda(
     b, d, h, w, _ = cost.shape
     cdtype = cost.dtype
     dev = cost.device
-
-    def weights(kernel, cout):
-        k = kernel.to(cdtype).contiguous()
-        _build.require_cuda(k, "kernel", shape=(3, 3, 3, CHANNELS, cout))
-        return k
-
-    def f32(v, name, n):
-        v = v.float().contiguous()
-        _build.require_cuda(v, name, shape=(n,))
-        return v
-
-    layers = []
-    for i in range(NUM_BN_LAYERS):
-        layers.append((weights(params["kernels"][i], CHANNELS),
-                       f32(params["biases"][i], "bias", CHANNELS),
-                       tuple(f32(v, name, CHANNELS) for v, name in (
-                           (run_stats[0][i], "running mean"),
-                           (run_stats[1][i], "running var"),
-                           (params["scales"][i], "bn scale"),
-                           (params["bn_biases"][i], "bn bias")))))
-    layers.append((weights(params["final_kernel"], 1),
-                   f32(params["final_bias"], "final bias", 1), None))
+    dcode = _build.DTYPE_CODES[cdtype]
+    layers, final = _stack_weights(params, run_stats, cdtype)
+    n = cost.numel()
+    if train:
+        mu = torch.empty((NUM_BN_LAYERS, CHANNELS), dtype=torch.float32, device=dev)
+        var = torch.empty_like(mu)
+        nparts = -(-n // THREADS)
+        partials = torch.empty((nparts, 2, CHANNELS), dtype=torch.float32, device=dev)
 
     lib = _build.library()
     x = cost
     with torch.cuda.device(dev):
         stream = _build.stream_of(cost)
-        for kernel, bias, bn in layers:
-            cout = kernel.shape[-1]
-            out = torch.empty((b, d, h, w, cout), dtype=cdtype, device=dev)
-            bn_ptrs = [t.data_ptr() for t in bn] if bn is not None else [None] * 4
-            status = lib.stereo_conv3d_bn_leaky_forward(
-                x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), *bn_ptrs,
-                out.data_ptr(), b, d, h, w, CHANNELS, cout, int(bn is not None),
-                eps, LEAKY_SLOPE, _build.DTYPE_CODES[cdtype], stream)
-            _build.check(status, "stereo_conv3d_bn_leaky_forward")
-            aggregate_cost_volume_cuda.launches += 1
+        for i, (kernel, bias, (rmean, rvar, gamma, beta)) in enumerate(layers):
+            out = torch.empty_like(cost)
+            if not train:
+                _build.check(lib.stereo_conv3d_bn_leaky_forward(
+                    x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rmean.data_ptr(),
+                    rvar.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                    b, d, h, w, CHANNELS, CHANNELS, 1, eps, LEAKY_SLOPE, dcode, stream),
+                    "stereo_conv3d_bn_leaky_forward")
+                aggregate_cost_volume_cuda.launches += 1
+                x = out
+                continue
+            _build.check(lib.stereo_conv3d_stats_forward(
+                x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                partials.data_ptr(), nparts, b, d, h, w, CHANNELS, CHANNELS, dcode, stream),
+                "stereo_conv3d_stats_forward")
+            _build.check(lib.stereo_bn_stats_finalize(
+                partials.data_ptr(), nparts, CHANNELS, n // CHANNELS, mu[i].data_ptr(),
+                var[i].data_ptr(), stream), "stereo_bn_stats_finalize")
+            _build.check(lib.stereo_bn_leaky_apply(
+                out.data_ptr(), mu[i].data_ptr(), var[i].data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), n, CHANNELS, eps, LEAKY_SLOPE, dcode, stream),
+                "stereo_bn_leaky_apply")
+            aggregate_cost_volume_cuda.launches += 3
             x = out
-    return x[..., 0], run_stats[0], run_stats[1]
+        kernel, bias = final
+        out = torch.empty((b, d, h, w, 1), dtype=cdtype, device=dev)
+        _build.check(lib.stereo_conv3d_bn_leaky_forward(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), None, None, None, None,
+            out.data_ptr(), b, d, h, w, CHANNELS, 1, 0, eps, LEAKY_SLOPE, dcode, stream),
+            "stereo_conv3d_bn_leaky_forward")
+        aggregate_cost_volume_cuda.launches += 1
+    if train:
+        return out[..., 0], mu, var
+    return out[..., 0], run_stats[0], run_stats[1]
 
 
 aggregate_cost_volume_cuda.launches = 0

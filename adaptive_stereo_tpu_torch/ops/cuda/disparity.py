@@ -17,11 +17,7 @@ from ..fcs import feature_contrast_mean
 from ..soft_argmin import soft_argmin
 from . import _build
 
-__all__ = ["MAX_DISP", "soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
-
-# The kernel holds a pixel's D costs in registers (STEREO_MAX_DISP in
-# csrc/disparity.cu). Every supported config has D <= 24.
-MAX_DISP = 64
+__all__ = ["soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
 
 
 def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -33,7 +29,7 @@ def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
 
 def soft_argmin_fcs_cuda(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expected disparity and FCS, each (B, H, W) float32, from a float32
-    (B, D, H, W) pre-softmax cost with 3 <= D <= MAX_DISP."""
+    (B, D, H, W) pre-softmax cost with D >= 3."""
     if cost.device.type == "cpu":
         return soft_argmin_fcs_ref(cost)
     _build.require_cuda(cost, "cost", (torch.float32,))
@@ -41,8 +37,8 @@ def soft_argmin_fcs_cuda(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     if cost.dim() != 4:
         raise ValueError(f"cost must be (B, D, H, W), got {tuple(cost.shape)}")
     b, d, h, w = cost.shape
-    if not 3 <= d <= MAX_DISP:
-        raise ValueError(f"the kernel takes 3 <= D <= {MAX_DISP}, got D={d}")
+    if d < 3:
+        raise ValueError(f"FCS requires D >= 3 disparities, got D={d}")
     disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
     fcs = torch.empty_like(disp)
     lib = _build.library()

@@ -32,10 +32,11 @@ class ServingConfig:
     publish_color_point_cloud: bool = True
     camera_intrinsics: np.ndarray = field(default_factory=_default_intrinsics)
     compute_dtype: str = "bfloat16"
-    # Kept for field parity with the JAX config. The port's engine always
-    # runs the composed kernel path (cost volume, aggregation stack,
-    # soft-argmin + FCS on the CUDA kernels); this field selects nothing.
+    # Kept for field parity with the JAX config. The port's aggregation
+    # stack always runs on its CUDA kernel; this field selects nothing.
     pallas_aggregation: bool = False
-    # The fully fused coarse head is not ported yet: True raises
-    # NotImplementedError in the engine.
+    # True: the coarse head (cost volume, aggregation stack, soft-argmin +
+    # FCS) runs as ONE fused CUDA kernel (csrc/coarse_head.cu) instead of
+    # the three kernels in turn; the same function, the same weights. Off by
+    # default, as in the JAX config. On the CPU both run the plain versions.
     fused_coarse_head: bool = False

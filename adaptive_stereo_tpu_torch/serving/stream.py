@@ -7,9 +7,14 @@ point cloud. The forward and the resizes to the voxel scale run on the
 device (F.interpolate, bilinear, align_corners=False); the geometry is
 numpy.
 
+ServingConfig.fused_coarse_head selects the model's coarse head: the fused
+CUDA kernel, or the three kernels in turn (the default). Unlike the JAX
+engine, which takes the fused head on a TPU backend only, the port runs the
+fused kernel on CUDA whenever the config asks for it.
+
 Not ported yet: the on_disparity colormap callback (raises
-NotImplementedError), the flax msgpack checkpoint, the native voxel grid,
-and the fused coarse head.
+NotImplementedError), the flax msgpack checkpoint and the native voxel
+grid.
 """
 
 from __future__ import annotations
@@ -104,10 +109,6 @@ class StereoDepthEngine:
         if on_disparity is not None:
             raise NotImplementedError(
                 "on_disparity needs the disparity colormap, which is not ported yet")
-        if config.fused_coarse_head:
-            raise NotImplementedError(
-                "fused_coarse_head: the fused coarse-head kernel is the next slice "
-                "of the port; use fused_coarse_head=False")
         self.config = config
         self.on_pointcloud = on_pointcloud
         self.device = resolve_device(device)
@@ -121,6 +122,7 @@ class StereoDepthEngine:
         self.model = StereoModel(
             k=config.stereonet_k, input_scale=config.input_scale,
             dtype=optional_dtype(config.compute_dtype), device=self.device,
+            fused_coarse_head=config.fused_coarse_head,
         ).load_state_dicts(*weights).eval()
         self._disp_key = f"pred_disp_l/{config.input_scale}"
 

@@ -91,7 +91,7 @@ def test_library_name_follows_the_sources():
     assert path.parent == PORT / "_build"
     assert path.name.startswith("libstereo_kernels_") and path.suffix == ".so"
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu"}
+    assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu", "coarse_head.cu"}
     ignored = (REPO / ".gitignore").read_text().split()
     assert "adaptive_stereo_tpu_torch/_build/" in ignored
 

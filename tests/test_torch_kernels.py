@@ -10,7 +10,10 @@ Tolerances: cost volume bitwise equal (one float32 subtraction per
 element). Soft-argmin + FCS 1e-5 absolute and relative (float32 reductions
 over D in different orders). Aggregation 1e-4 absolute and relative, the
 band tests/test_pallas_kernels.py uses for the Pallas kernel against its jnp
-twin (five stacked float32 convolutions of 864 terms each).
+twin (five stacked float32 convolutions of 864 terms each). The fused
+coarse head: disparity and FCS within the aggregation band (they are
+functions of the aggregated cost), batch mu/var 1e-4 relative + 1e-5
+absolute (float32 means over B*D*H*W in different orders).
 """
 
 import jax.numpy as jnp
@@ -20,18 +23,22 @@ import torch
 
 from adaptive_stereo_tpu.ops.pallas import (
     aggregate_cost_volume_pallas,
+    coarse_head_pallas,
     aggregate_cost_volume_ref as jax_aggregate_ref,
     difference_cost_volume_pallas,
     soft_argmin_fcs_pallas,
 )
 from adaptive_stereo_tpu_torch.ops.cuda import (
     aggregate_cost_volume_cuda,
+    coarse_head_cuda,
+    coarse_head_cuda_supported,
     difference_cost_volume_cuda,
     soft_argmin_fcs_cuda,
 )
 
 DISP_TOL = dict(rtol=1e-5, atol=1e-5)
 AGG_TOL = dict(rtol=1e-4, atol=1e-4)
+STATS_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _agg_inputs(rng, b, d, h, w, scale=0.1):
@@ -115,15 +122,45 @@ def test_aggregation_plain_train_statistics_match_jax():
         torch.from_numpy(cost), _torch(params), tuple(map(torch.from_numpy, stats)),
         train=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **AGG_TOL)
-    np.testing.assert_allclose(mu.numpy(), np.asarray(mu_r), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(var.numpy(), np.asarray(var_r), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(mu_r), **STATS_TOL)
+    np.testing.assert_allclose(var.numpy(), np.asarray(var_r), **STATS_TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("b,d,h,w", [(1, 12, 8, 16), (2, 5, 6, 12)])
+def test_coarse_head_plain_matches_pallas(b, d, h, w, train):
+    rng = np.random.RandomState(b * 100 + d)
+    _, params, stats = _agg_inputs(rng, 1, 1, 1, 1)
+    fl = rng.randn(b, h, w, 32).astype(np.float32)
+    fr = rng.randn(b, h, w, 32).astype(np.float32)
+    ref = coarse_head_pallas(jnp.asarray(fl), jnp.asarray(fr), _jax(params),
+                             tuple(map(jnp.asarray, stats)), d, train, interpret=True)
+    out = coarse_head_cuda(torch.from_numpy(fl), torch.from_numpy(fr), _torch(params),
+                           tuple(map(torch.from_numpy, stats)), train, d)
+    for got, want, name in zip(out, ref, ("disp", "fcs", "mu", "var")):
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape, name
+        tol = AGG_TOL if name in ("disp", "fcs") else STATS_TOL
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=name, **tol)
+    if not train:  # eval mode echoes the running statistics
+        np.testing.assert_array_equal(out[2].numpy(), stats[0])
+        np.testing.assert_array_equal(out[3].numpy(), stats[1])
+
+
+def test_coarse_head_admission():
+    assert coarse_head_cuda_supported((1, 20, 76, 32), 12, torch.bfloat16)
+    assert coarse_head_cuda_supported((2, 6, 12, 32), 3, torch.float32)
+    assert not coarse_head_cuda_supported((1, 20, 76, 16), 12, torch.bfloat16)  # C != 32
+    assert not coarse_head_cuda_supported((1, 20, 76, 32), 2, torch.bfloat16)   # D < 3
+    assert not coarse_head_cuda_supported((1, 20, 76, 32), 12, torch.float16)
+    assert not coarse_head_cuda_supported((20, 76, 32), 12, torch.float32)
 
 
 def test_wrappers_never_take_the_plain_version_off_the_cpu():
     """A tensor that is not on the CPU goes to the kernel path, which
     validates it and raises here (a meta tensor is not a CUDA tensor); it
     never falls back to the plain version, and counts no launch."""
-    wrappers = (difference_cost_volume_cuda, aggregate_cost_volume_cuda, soft_argmin_fcs_cuda)
+    wrappers = (difference_cost_volume_cuda, aggregate_cost_volume_cuda, soft_argmin_fcs_cuda,
+                coarse_head_cuda)
     before = [w.launches for w in wrappers]
     f = torch.empty(1, 4, 8, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -131,12 +168,12 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         soft_argmin_fcs_cuda(torch.empty(1, 12, 4, 8, device="meta"))
     _, params, stats = _agg_inputs(np.random.RandomState(0), 1, 1, 1, 1)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        aggregate_cost_volume_cuda(torch.empty(1, 12, 4, 8, 32, device="meta"),
-                                   _torch(params), tuple(map(torch.from_numpy, stats)),
-                                   train=False)
-    with pytest.raises(NotImplementedError):
-        aggregate_cost_volume_cuda(torch.empty(1, 12, 4, 8, 32, device="meta"),
-                                   _torch(params), tuple(map(torch.from_numpy, stats)),
-                                   train=True)
+    for train in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            aggregate_cost_volume_cuda(torch.empty(1, 12, 4, 8, 32, device="meta"),
+                                       _torch(params), tuple(map(torch.from_numpy, stats)),
+                                       train=train)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            coarse_head_cuda(f, f, _torch(params), tuple(map(torch.from_numpy, stats)),
+                             train, 12)
     assert [w.launches for w in wrappers] == before

@@ -1,4 +1,7 @@
-"""The port's serving engine vs the JAX package's, float32 on both sides.
+"""The port's serving engine vs the JAX package's, float32 on both sides,
+with the default coarse head and with fused_coarse_head=True (which the JAX
+engine takes on a TPU backend only, so on the CPU it runs its XLA head; the
+port runs the plain versions of its kernels either way).
 
 Same config, same weights (carried by state_dicts_from_jax), same frames
 from a numpy seed. The JAX engine runs its XLA forward and cv2 resizes on
@@ -59,11 +62,11 @@ def _sorted_rows(a):
     return a[np.lexsort(a.T[::-1])]
 
 
-def test_engine_matches_jax_engine(setup):
+def _check_engine_against_jax(setup, **kw):
     variables, frames = setup
-    ref_engine = JaxEngine(_config(JaxServingConfig), variables)
+    ref_engine = JaxEngine(_config(JaxServingConfig, **kw), variables)
     clouds = []
-    engine = StereoDepthEngine(_config(ServingConfig), state_dicts_from_jax(variables, K),
+    engine = StereoDepthEngine(_config(ServingConfig, **kw), state_dicts_from_jax(variables, K),
                                on_pointcloud=lambda p, c, t: clouds.append(t),
                                device="cpu")
     for i, (left, right) in enumerate(frames):
@@ -83,6 +86,32 @@ def test_engine_matches_jax_engine(setup):
             atol=1e-3)
     assert clouds == [0.0, 1.0, 2.0]
     assert engine.last_inference_sec is not None
+
+
+def test_engine_matches_jax_engine(setup):
+    _check_engine_against_jax(setup)
+
+
+def test_fused_engine_matches_jax_engine(setup):
+    _check_engine_against_jax(setup, fused_coarse_head=True)
+
+
+def test_async_fused_engine_matches_sync_default_engine(setup):
+    """One submit/flush round of the fused async engine gives what the sync
+    engine with the default head gives (on the CPU both heads are the same
+    plain ops)."""
+    variables, frames = setup
+    sds = state_dicts_from_jax(variables, K)
+    sync = StereoDepthEngine(_config(ServingConfig), sds, device="cpu")
+    eng = AsyncStereoDepthEngine(_config(ServingConfig, fused_coarse_head=True), sds,
+                                 device="cpu")
+    assert eng.model.stereo_net.fused_coarse_head
+    (left, right) = frames[0]
+    assert eng.submit(left, right, timestamp=0.0) is None
+    got = eng.flush()
+    want = sync.process(left, right)
+    for key in ("disparity", "depth", "points", "colors"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_async_engine_matches_sync_engine(setup):
@@ -131,9 +160,10 @@ def test_engine_refuses_what_is_not_ported(setup):
     sds = state_dicts_from_jax(variables, K)
     with pytest.raises(NotImplementedError, match="colormap"):
         StereoDepthEngine(_config(ServingConfig), sds, on_disparity=print, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        StereoDepthEngine(_config(ServingConfig, fused_coarse_head=True), sds, device="cpu")
+    fused = StereoDepthEngine(_config(ServingConfig, fused_coarse_head=True), sds, device="cpu")
+    assert fused.model.stereo_net.fused_coarse_head
     engine = StereoDepthEngine(_config(ServingConfig), sds, device="cpu")
+    assert not engine.model.stereo_net.fused_coarse_head
     with pytest.raises(ValueError):
         engine.process(np.full((H, W, 3), 2.0, np.float32), np.zeros((H, W, 3), np.float32))
 
