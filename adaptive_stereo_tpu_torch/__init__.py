@@ -7,11 +7,13 @@ its counterpart's name and is held against it by the CPU tests
 library only.
 
 Layout (mirrors adaptive_stereo_tpu/):
-  ops/         plain PyTorch ops (cost volume, soft-argmin, FCS)
+  ops/         plain PyTorch ops (cost volume, soft-argmin, FCS, warp,
+               losses, EMA)
   ops/cuda/    hand-written CUDA kernels for sm_90a (sources in csrc/),
                each with its plain PyTorch version beside it
   models/      StereoNet as nn.Modules with the reference state-dict keys
   serving/     stream-ingest depth engine (eval forward -> depth -> cloud)
+  engine/      online adaptation (adapt / done / validate steps, reservoir)
 
 Entry points run on "cuda" unless the caller passes device="cpu"; asking for
 CUDA on a machine without it raises.

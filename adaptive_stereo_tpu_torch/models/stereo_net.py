@@ -4,8 +4,9 @@ Counterpart of adaptive_stereo_tpu/models/stereo_net.py with
 StereoModel(use_pallas=True, pallas_aggregation=True): the coarse head runs
 the three CUDA kernels of ops/cuda (cost volume, aggregation stack, fused
 soft-argmin + FCS), or with fused_coarse_head=True the one fused coarse-head
-kernel; the feature tower and the full-resolution refinement are
-F.conv2d.
+kernel; the feature tower is F.conv2d. The full-resolution refinement is
+F.conv2d, or with fused_tower=True the refinement-tower kernels
+(ops/cuda/tower.py; JAX: pallas_tower=True, s2d_refinement=True).
 
 The modules carry the reference's state-dict keys (downsample.{i},
 residual_blocks.{i}.conv1.0.{0,1}, filter.{i}.0.{0,1}, conv3d_alone,
@@ -16,6 +17,12 @@ Layouts at the public surface are the JAX package's: images (B, H, W, 3),
 features (B, h, w, 32), cost volume (B, D, h, w, 32), disparities
 (B, H, W, 1). Inside, the 2D convolutions run NCHW.
 
+Train mode (module.train()) is flax's BatchNorm, not nn.BatchNorm's: the
+batch statistics are mu = E[y] and the biased var = E[y^2] - mu^2 in f32,
+and the running statistics update as 0.9 * running + 0.1 * batch (no
+gradient), on every train-mode forward. Eval mode normalises with the
+running statistics.
+
 Quirks of the reference kept on purpose:
 - BasicBlock is x + leaky_relu(convbn(x), 0.2); its conv2 exists only so the
   state-dict keys load (reference stereo_net.py:44-51).
@@ -23,8 +30,6 @@ Quirks of the reference kept on purpose:
 - The coarse output is 2**k * bilinear(pred), while the refinement scales
   the upsampled disparity by the true width ratio W / w.
 - Softmax (not softmin) over the pre-softmax cost.
-
-Only the eval forward is ported (module.eval()); train mode raises.
 """
 
 from __future__ import annotations
@@ -36,12 +41,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
-from ..ops.cuda import difference_cost_volume_cuda, soft_argmin_fcs_cuda
-from .aggregation import apply_aggregation, apply_coarse_head
+from ..ops.cuda import difference_cost_volume_cuda, soft_argmin_fcs_cuda, tower_cuda
+from .aggregation import (BN_MOMENTUM, apply_aggregation, apply_coarse_head,
+                          update_running_stats)
 
 LEAKY_SLOPE = 0.2
 BN_EPS = 1e-5
-BN_MOMENTUM = 0.1
 
 
 def coarse_num_disparities(maxdisp: int, input_scale: int, k: int) -> int:
@@ -74,10 +79,22 @@ def _conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
 
 
 def _bn(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
-    """BatchNorm with bn's float32 parameters and statistics on x; the
-    result is in x's dtype (computed in float32 for a bfloat16 x)."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                        bn.training, bn.momentum, bn.eps)
+    """BatchNorm with bn's float32 parameters on x (channels at dim 1); the
+    result is in x's dtype (computed in float32 for a bfloat16 x). Eval mode
+    uses the running statistics; train mode the batch statistics by flax's
+    rule (max(E[y^2] - E[y]^2, 0) for the variance), and updates the
+    running statistics."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    mu = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mu * mu, min=0.0)
+    update_running_stats([bn], mu[None], var[None])
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mu.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(x.dtype)
 
 
 def _convbn(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
@@ -129,11 +146,15 @@ class EdgeAwareRefinement(nn.Module):
     """Edge-aware refinement, reference stereo_net.py:88-121: upsample the
     coarse disparity, scale it by W / w, concatenate the RGB guide, run a
     dilated residual tower (1, 2, 4, 8, 1, 1) and add a 1-channel residual,
-    then ReLU."""
+    then ReLU. fused_tower=True runs the 8 layers through the tower kernels
+    (ops/cuda/tower.py, the counterpart of JAX
+    s2d_refinement.py:_apply_pallas_tower), with the same parameters."""
 
-    def __init__(self, dtype: Optional[torch.dtype] = None, device=None):
+    def __init__(self, dtype: Optional[torch.dtype] = None, device=None,
+                 fused_tower: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.fused_tower = fused_tower
         self.conv2d_feature = nn.Sequential(convbn(4, 32, 3, 1, 1, 1, device),
                                             nn.LeakyReLU(LEAKY_SLOPE))
         self.residual_astrous_blocks = nn.ModuleList(
@@ -150,11 +171,41 @@ class EdgeAwareRefinement(nn.Module):
         x = torch.cat([up.to(guide.dtype), guide], dim=1)
         if self.dtype is not None:
             x = x.to(self.dtype)
+        if self.fused_tower:
+            residual = self.tower(x.permute(0, 2, 3, 1))
+            return F.relu(up.permute(0, 2, 3, 1) + residual.to(up.dtype))
         x = F.leaky_relu(_convbn(x, self.conv2d_feature[0]), LEAKY_SLOPE)
         for block in self.residual_astrous_blocks:
             x = block(x)
         residual = _conv(x, self.conv2d_out)
         return F.relu(up + residual.to(up.dtype)).permute(0, 2, 3, 1)
+
+    def tower_layers(self):
+        """The tower's 8 convs and 7 BatchNorms, in layer order."""
+        convs = [self.conv2d_feature[0][0]] + [
+            blk.conv1[0][0] for blk in self.residual_astrous_blocks] + [self.conv2d_out]
+        bns = [self.conv2d_feature[0][1]] + [blk.conv1[0][1]
+                                             for blk in self.residual_astrous_blocks]
+        return convs, bns
+
+    def tower(self, x0: torch.Tensor) -> torch.Tensor:
+        """The 8 layers through tower_cuda on x0 (B, H, W, 4) in the compute
+        dtype; updates the running statistics in train mode. Returns the
+        residual (B, H, W, 1)."""
+        convs, bns = self.tower_layers()
+        params = {
+            "kernels": [c.weight.permute(2, 3, 1, 0) for c in convs],
+            "biases": [c.bias for c in convs],
+            "gammas": torch.stack([b.weight for b in bns]),
+            "betas": torch.stack([b.bias for b in bns]),
+        }
+        run_stats = (torch.stack([b.running_mean for b in bns]),
+                     torch.stack([b.running_var for b in bns]))
+        residual, mu, var = tower_cuda(x0.contiguous(), params, run_stats, self.training,
+                                       bns[0].eps)
+        if self.training:
+            update_running_stats(bns, mu, var)
+        return residual
 
 
 class StereoNet(nn.Module):
@@ -172,11 +223,14 @@ class StereoNet(nn.Module):
                                           (B, D, h, w), if output_cost_volume
     (JAX stereo_net.py:238-296). output_cost_volume takes the three-stage
     path, which materialises the cost, whatever fused_coarse_head says.
+    Train mode runs the kernels with batch statistics and updates the
+    running statistics; the three-stage path is differentiable, the fused
+    head (forward only) is not.
     """
 
     def __init__(self, k: int, r: int = 1, input_scale: int = 0, maxdisp: int = 192,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 fused_coarse_head: bool = False):
+                 fused_coarse_head: bool = False, fused_tower: bool = False):
         super().__init__()
         self.k = k
         self.input_scale = input_scale
@@ -192,7 +246,7 @@ class StereoNet(nn.Module):
             for _ in range(4))
         self.conv3d_alone = nn.Conv3d(32, 1, 3, 1, 1, device=device)
         self.edge_aware_refinements = nn.ModuleList(
-            EdgeAwareRefinement(dtype, device) for _ in range(r))
+            EdgeAwareRefinement(dtype, device, fused_tower) for _ in range(r))
 
     @property
     def num_disp(self) -> int:
@@ -201,9 +255,6 @@ class StereoNet(nn.Module):
     def forward(self, left_img: torch.Tensor, left_features: torch.Tensor,
                 right_features: torch.Tensor, side: str = "l",
                 output_cost_volume: bool = False) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported; call .eval() first")
         coarse_scale = self.input_scale + self.k
         if self.fused_coarse_head and not output_cost_volume:
             fl, fr = left_features, right_features
@@ -237,15 +288,24 @@ class StereoModel(nn.Module):
     """Feature tower on both views + the StereoNet head, one forward
     (reference train.py:19-22). Built on `device` ("cuda" unless the caller
     passes "cpu"); the CUDA kernels serve the coarse head there, three in
-    turn or, with fused_coarse_head=True, the fused one."""
+    turn or, with fused_coarse_head=True, the fused one, and with
+    fused_tower=True the refinement tower.
+
+    fused_siamese: both views through the feature tower as one batch-2B
+    forward (JAX stereo_net.py:354-362): BatchNorm statistics are over both
+    views jointly, and the running statistics update once.
+    """
 
     def __init__(self, k: int, input_scale: int = 0, maxdisp: int = 192,
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
-                 fused_coarse_head: bool = False):
+                 fused_coarse_head: bool = False, fused_siamese: bool = False,
+                 fused_tower: bool = False):
         super().__init__()
         dev = resolve_device(device)
+        self.fused_siamese = fused_siamese
         self.feature_net = FeatureExtractorNetwork(k, dtype, dev)
-        self.stereo_net = StereoNet(k, 1, input_scale, maxdisp, dtype, dev, fused_coarse_head)
+        self.stereo_net = StereoNet(k, 1, input_scale, maxdisp, dtype, dev, fused_coarse_head,
+                                    fused_tower)
 
     def load_state_dicts(self, feature_sd, stereo_sd) -> "StereoModel":
         """Load the reference-layout pair (strict), e.g. from
@@ -256,8 +316,13 @@ class StereoModel(nn.Module):
 
     def forward(self, left_img: torch.Tensor, right_img: torch.Tensor,
                 side: str = "l", output_cost_volume: bool = False) -> Dict[str, torch.Tensor]:
-        fl = self.feature_net(left_img)
-        fr = self.feature_net(right_img)
+        if self.fused_siamese:
+            b = left_img.shape[0]
+            f = self.feature_net(torch.cat([left_img, right_img], dim=0))
+            fl, fr = f[:b], f[b:]
+        else:
+            fl = self.feature_net(left_img)
+            fr = self.feature_net(right_img)
         return self.stereo_net(left_img, fl, fr, side, output_cost_volume)
 
 

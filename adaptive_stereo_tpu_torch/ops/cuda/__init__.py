@@ -10,6 +10,7 @@ from .aggregation import aggregate_cost_volume_cuda, aggregate_cost_volume_ref
 from .coarse_head import coarse_head_cuda, coarse_head_cuda_supported, coarse_head_ref
 from .cost_volume import difference_cost_volume_cuda, difference_cost_volume_ref
 from .disparity import soft_argmin_fcs_cuda, soft_argmin_fcs_ref
+from .tower import tower_backward_cuda, tower_cuda, tower_forward_cuda, tower_ref
 
 __all__ = [
     "aggregate_cost_volume_cuda",
@@ -21,4 +22,8 @@ __all__ = [
     "difference_cost_volume_ref",
     "soft_argmin_fcs_cuda",
     "soft_argmin_fcs_ref",
+    "tower_backward_cuda",
+    "tower_cuda",
+    "tower_forward_cuda",
+    "tower_ref",
 ]

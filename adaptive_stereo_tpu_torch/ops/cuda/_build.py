@@ -54,6 +54,10 @@ _SIGNATURES = {
     "stereo_bn_leaky_apply": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
     "stereo_soft_argmin_fcs_forward": [_P, _P, _P, _I, _I, _I, _P],
     "stereo_coarse_head_forward": [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P],
+    "stereo_tower_conv": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
+    "stereo_tower_grad_y": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
+    "stereo_tower_wgrad": [_P] * 3 + [_I] * 8 + [_P],
+    "stereo_column_sum": [_P, _I, _I, _I, _P, _P],
 }
 
 
@@ -149,8 +153,8 @@ def require_cuda(t: torch.Tensor, name: str, dtypes=None,
 
 
 def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels of this package have no backward yet: refuse inputs that
-    would need one rather than return an output cut off from autograd."""
+    """For a kernel without a backward: refuse inputs that would need one
+    rather than return an output cut off from autograd."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} is forward-only on CUDA; call it under torch.no_grad() "

@@ -20,6 +20,12 @@ for CPU tensors only. Eval mode is one launch per layer (five); train mode
 adds, per BatchNorm layer, the batch statistics (a deterministic reduction
 across blocks, csrc/bn_stats.cuh) and the normalisation as launches of
 their own (thirteen in all).
+
+On CUDA the wrapper is a torch.autograd.Function, differentiable in the cost
+and the params (the running statistics carry no gradient, nor do mu/var).
+Its backward is the JAX custom VJP (ops/pallas/aggregation.py:455-467):
+recompute the stack through aggregate_cost_volume_ref and take autograd of
+it, with the incoming gradient cast to float32 and then to the cost's dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref"]
+
+PARAM_NAMES = ("kernels", "biases", "scales", "bn_biases", "final_kernel", "final_bias")
 
 LEAKY_SLOPE = 0.2
 NUM_BN_LAYERS = 4
@@ -111,6 +119,27 @@ def aggregate_cost_volume_ref(
     return out[:, 0], torch.stack(mus), torch.stack(vars_)
 
 
+class _Aggregation(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cost, rmean, rvar, train, eps, *values):
+        params = dict(zip(PARAM_NAMES, values))
+        out, mu, var = _launch(cost, params, (rmean, rvar), train, eps)
+        ctx.save_for_backward(cost, rmean, rvar, *values)
+        ctx.train, ctx.eps = train, eps
+        ctx.mark_non_differentiable(mu, var)
+        return out, mu, var
+
+    @staticmethod
+    def backward(ctx, g_out, _g_mu, _g_var):
+        cost, rmean, rvar, *values = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (cost, *values)]
+            out = aggregate_cost_volume_ref(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])),
+                                            (rmean, rvar), ctx.train, ctx.eps)[0]
+            grads = torch.autograd.grad(out, inputs, g_out.float().to(cost.dtype))
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
 def aggregate_cost_volume_cuda(
     cost: torch.Tensor,
     params: Dict[str, torch.Tensor],
@@ -122,13 +151,18 @@ def aggregate_cost_volume_cuda(
     launches, one per layer, normalising with run_stats, which come back as
     mu/var. Train mode: per BatchNorm layer the conv with per-block sums,
     the reduction to the batch statistics (fast variance) and the
-    normalisation, then the final layer; mu/var are the batch statistics."""
+    normalisation, then the final layer; mu/var are the batch statistics.
+    Differentiable in cost and params."""
     if cost.device.type == "cpu":
         return aggregate_cost_volume_ref(cost, params, run_stats, train, eps)
+    return _Aggregation.apply(cost, run_stats[0], run_stats[1], train, eps,
+                              *(params[name] for name in PARAM_NAMES))
+
+
+def _launch(cost, params, run_stats, train, eps):
     _build.require_cuda(cost, "cost", tuple(_build.DTYPE_CODES))
     if cost.dim() != 5 or cost.shape[-1] != CHANNELS:
         raise ValueError(f"cost must be (B, D, H, W, {CHANNELS}), got {tuple(cost.shape)}")
-    _build.forward_only("aggregate_cost_volume_cuda", cost, *params.values(), *run_stats)
     b, d, h, w, _ = cost.shape
     cdtype = cost.dtype
     dev = cost.device

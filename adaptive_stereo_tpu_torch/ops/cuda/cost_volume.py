@@ -5,6 +5,11 @@ Counterpart of adaptive_stereo_tpu/ops/pallas/cost_volume.py
 plain version is ops/cost_volume.py:difference_cost_volume, re-exported here
 as difference_cost_volume_ref. The wrapper takes the plain version for CPU
 tensors only; on CUDA tensors it launches the kernel or raises.
+
+On CUDA the wrapper is a torch.autograd.Function whose backward is plain
+PyTorch, the JAX custom VJP (ops/pallas/cost_volume.py:87-104): masked
+shift-sums of the incoming gradient,
+    dL/df_l[x] = sum_d g[d, x] (x >= d),  dL/df_r[x] = -sum_d g[d, x + d].
 """
 
 from __future__ import annotations
@@ -14,19 +19,46 @@ import torch
 from ..cost_volume import difference_cost_volume as difference_cost_volume_ref
 from . import _build
 
-__all__ = ["difference_cost_volume_cuda", "difference_cost_volume_ref"]
+__all__ = ["difference_cost_volume_backward", "difference_cost_volume_cuda",
+           "difference_cost_volume_ref"]
+
+
+def difference_cost_volume_backward(g: torch.Tensor):
+    """(dL/df_l, dL/df_r), each (B, H, W, C), from the gradient g
+    (B, D, H, W, C) of the cost volume."""
+    b, d, h, w, c = g.shape
+    d_fl = torch.zeros((b, h, w, c), dtype=g.dtype, device=g.device)
+    d_fr = torch.zeros_like(d_fl)
+    for di in range(min(d, w)):
+        d_fl[:, :, di:] += g[:, di, :, di:]
+        d_fr[:, :, : w - di] -= g[:, di, :, di:]
+    return d_fl, d_fr
+
+
+class _CostVolume(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f_l, f_r, num_disp):
+        return _launch(f_l, f_r, num_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_fl, d_fr = difference_cost_volume_backward(g.contiguous())
+        return d_fl, d_fr, None
 
 
 def difference_cost_volume_cuda(f_l: torch.Tensor, f_r: torch.Tensor,
                                 num_disp: int) -> torch.Tensor:
     """Cost volume (B, D, H, W, C) from features (B, H, W, C), float32 or
-    bfloat16. Bitwise equal to difference_cost_volume_ref."""
+    bfloat16. Bitwise equal to difference_cost_volume_ref. Differentiable."""
     if f_l.device.type == "cpu" and f_r.device.type == "cpu":
         return difference_cost_volume_ref(f_l, f_r, num_disp)
+    return _CostVolume.apply(f_l, f_r, num_disp)
+
+
+def _launch(f_l: torch.Tensor, f_r: torch.Tensor, num_disp: int) -> torch.Tensor:
     dtypes = tuple(_build.DTYPE_CODES)
     _build.require_cuda(f_l, "f_l", dtypes)
     _build.require_cuda(f_r, "f_r", (f_l.dtype,), tuple(f_l.shape))
-    _build.forward_only("difference_cost_volume_cuda", f_l, f_r)
     if f_l.dim() != 4:
         raise ValueError(f"features must be (B, H, W, C), got {tuple(f_l.shape)}")
     if num_disp < 1:

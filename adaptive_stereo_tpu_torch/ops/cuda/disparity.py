@@ -5,6 +5,10 @@ Counterpart of adaptive_stereo_tpu/ops/pallas/disparity.py
 version, soft_argmin_fcs_ref, composes ops/soft_argmin.py and ops/fcs.py.
 The wrapper takes the plain version for CPU tensors only; on CUDA tensors it
 launches the kernel or raises.
+
+On CUDA the wrapper is a torch.autograd.Function whose backward is plain
+PyTorch, the JAX custom VJP (ops/pallas/disparity.py:89-100):
+d disp / d cost_j = p_j * (j - disp), and FCS is a stop-gradient.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from ..fcs import feature_contrast_mean
 from ..soft_argmin import soft_argmin
 from . import _build
 
-__all__ = ["soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
+__all__ = ["soft_argmin_fcs_backward", "soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
 
 
 def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -27,13 +31,41 @@ def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return soft_argmin(cost, dim=1), feature_contrast_mean(cost)
 
 
+def soft_argmin_fcs_backward(cost: torch.Tensor, disp: torch.Tensor,
+                             g_disp: torch.Tensor) -> torch.Tensor:
+    """dL/dcost (B, D, H, W) from the gradient g_disp (B, H, W) of the
+    expected disparity: g * p_j * (j - disp)."""
+    p = torch.softmax(cost.float(), dim=1)
+    dvals = torch.arange(cost.shape[1], dtype=torch.float32,
+                         device=cost.device).reshape(1, -1, 1, 1)
+    return (g_disp[:, None] * p * (dvals - disp[:, None])).to(cost.dtype)
+
+
+class _SoftArgminFcs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cost):
+        disp, fcs = _launch(cost)
+        ctx.save_for_backward(cost, disp)
+        ctx.mark_non_differentiable(fcs)
+        return disp, fcs
+
+    @staticmethod
+    def backward(ctx, g_disp, _g_fcs):
+        cost, disp = ctx.saved_tensors
+        return soft_argmin_fcs_backward(cost, disp, g_disp)
+
+
 def soft_argmin_fcs_cuda(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expected disparity and FCS, each (B, H, W) float32, from a float32
-    (B, D, H, W) pre-softmax cost with D >= 3."""
+    (B, D, H, W) pre-softmax cost with D >= 3. Differentiable in the
+    disparity; FCS carries no gradient."""
     if cost.device.type == "cpu":
         return soft_argmin_fcs_ref(cost)
+    return _SoftArgminFcs.apply(cost)
+
+
+def _launch(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.require_cuda(cost, "cost", (torch.float32,))
-    _build.forward_only("soft_argmin_fcs_cuda", cost)
     if cost.dim() != 4:
         raise ValueError(f"cost must be (B, D, H, W), got {tuple(cost.shape)}")
     b, d, h, w = cost.shape

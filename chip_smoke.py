@@ -21,9 +21,32 @@ Phases, in order; any failure raises and the script exits non-zero:
               forward composed of the plain versions, on the same frame
   6. profile  device time by kernel over served frames (torch.profiler), for
               both engines
+  7. tower    the refinement-tower kernels (csrc/tower.cu) at the training
+              shape (2, 320, 960): the forward chain against tower_ref
+              (output, x/y buffers, mu/var) in f32 and bf16, train and eval;
+              the backward chain against autograd through tower_ref (dx0,
+              dW, db, dgamma, dbeta); times beside the bound and the plain
+              chain (cuDNN F.conv2d + the port's BN and LeakyReLU), whose
+              backward is timed alone as the sum of its kernels' device times
+  8. autograd kernels 1-3 at the training shapes (batch 2, coarse 20x60):
+              their forward outputs against the plain versions, f32 and
+              bf16, kernel 2 in train mode; the gradients through the
+              wrappers of kernels 1 and 3 against the plain versions'
+  9. training the online adaptation step (engine/flat_stream.py) at bench.py's
+              configuration, 320x960, k=4, bf16, with fused_siamese and
+              fused_tower, from seeded random weights: STEPS adapt steps
+              (median ms/step, launches per step, the ring log's
+              decisions), a done and a validate step; the same steps with
+              fused_tower=False (the cuDNN yardstick); one step with the
+              kernels against one with the plain versions from the same
+              state, on two frames, per module, beside a control (a plain
+              step on another frame); device time by kernel over a few steps
 
 The last two lines are the card's name and power limit, then
-{"ok": true, "device": {...}}; the line before them holds the kernel table.
+{"ok": true, "device": {...}}; the line before them holds the kernel table,
+whose "launches" count the served frames of phase 4 (kernels 1-4) or the
+adapt steps of phase 9 (the tower), and "train_launches" the adapt steps
+of phase 9 for every kernel.
 Float32 references run with TF32 off (cudnn.allow_tf32 and
 cuda.matmul.allow_tf32 both False), set at the start.
 """
@@ -31,6 +54,8 @@ cuda.matmul.allow_tf32 both False), set at the start.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -50,6 +75,42 @@ AGG_BF16_ABS, AGG_BF16_REL = 0.05, 0.05   # PERFORMANCE.md:80 bf16 band
 AGG_F32_ABS = 1e-3
 DISP_ABS = 1e-5
 FRAMES = 8  # served frames in phase 4, by each engine
+STEPS = 20  # timed adapt steps in phase 9, after WARMUP_STEPS
+WARMUP_STEPS = 3
+LR = 5e-5
+# Tower, f32 (phase 7): outputs and buffers within 1e-3 + 1e-4 |ref|, mu/var
+# within 1e-4 + 1e-4 |ref| (float32 sums in other orders; 1.3e-4 was
+# measured on an H100 at |ref| = 93). bf16: the kernel chain's error against
+# the f32 chain on the same bf16 inputs, in max and in mean, at most
+# TOWER_BF16_FACTOR times the plain bf16 chain's own error. Backward with
+# the plain version's buffers, f32: each gradient within TOWER_F32_GRAD_L2
+# of the plain autograd's in relative L2 norm; bf16 end to end: within
+# TOWER_BF16_FACTOR times the plain bf16 autograd's relative L2 error
+# against f32, plus TOWER_F32_GRAD_L2. db of layers 0-6 is 0 in exact
+# arithmetic (the BatchNorm after it removes a bias): it is held to
+# 1e-4 of the largest gradient instead.
+TOWER_BF16_FACTOR = 2.0
+TOWER_F32_GRAD_L2 = 1e-3
+# Training step, kernels vs plain versions from one state, phase 9, in
+# bf16 and in float32: relative differences of the Monodepth and replay
+# losses and of the stereo-net gradient norm; per module (feature net,
+# aggregation, tower) the relative L2 difference of the gradients ("grad")
+# and the median |theta_kernels - theta_plain| over the median update
+# ("param"). Each limit is the geometric mean, rounded, of the largest sound
+# reading and the smallest control reading (a plain step on another frame)
+# of the chip runs on an H100 in PERF.md (PR 7: three in bf16, two in
+# float32), and the control must fall outside it. A reading without a limit
+# is printed only: the gradient norm's, and the bf16 Monodepth loss's,
+# smallest control reading was less than 3x their largest sound reading.
+STEP_LIMITS = {
+    "bfloat16": {"replay": 1.8e-3, "feature grad": 0.59, "aggregation grad": 0.12,
+                 "tower grad": 0.085, "feature param": 0.069, "aggregation param": 0.015,
+                 "tower param": 0.033},
+    "float32": {"mono": 1e-5, "replay": 2.7e-5, "feature grad": 0.079,
+                "aggregation grad": 0.016, "tower grad": 0.013, "feature param": 8.9e-3,
+                "aggregation param": 2.0e-3, "tower param": 3.7e-3},
+}
+
 # Whole forward, kernels vs plain, bf16. If every aggregated cost entry
 # agrees within e, FCS = m1 - (sum - m1 - m2) / (D - 2) agrees within
 # e * (1 + (D + 2) / (D - 2)), so FCS gets that multiple of the band
@@ -137,9 +198,10 @@ def time_ms(fn, calls: int = 10, rounds: int = 5, warmup: int = 3) -> Timing:
     return Timing(statistics.median(per_call), statistics.median(host), ahead)
 
 
-def profile_breakdown(fn, repeats: int = 3, top: int = 12) -> None:
-    """Print device time by kernel name over `repeats` calls of fn() and the
-    device's busy share of the wall time, from torch.profiler."""
+def device_profile(fn, repeats: int):
+    """torch.profiler over `repeats` calls of fn(): (the profiler, the wall
+    time in us, [(device us, calls, name)] of every kernel, copy and memset
+    that took device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -152,22 +214,55 @@ def profile_breakdown(fn, repeats: int = 3, top: int = 12) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:  # kernels, copies, memsets only
+        if evt.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             per_name.append((dev_us, evt.count, evt.key))
+    return prof, wall_us, per_name
+
+
+def device_ms(fn, repeats: int = 3, warmup: int = 2) -> float:
+    """Device time per call of fn() (ms), the sum of its kernels' times from
+    torch.profiler: no launch gaps, whether or not the host keeps ahead."""
+    for _ in range(warmup):
+        fn()
+    per_name = device_profile(fn, repeats)[2]
+    total = sum(t for t, _, _ in per_name)
+    if total == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / repeats / 1e3
+
+
+def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
+                      host_top: int = 0) -> None:
+    """Print device time by kernel name over `repeats` calls of fn() and the
+    device's busy share of the wall time, from torch.profiler; with
+    host_top, also the host's operator count and its largest self CPU
+    times (inflated by the profiler's own cost per operator)."""
+    from torch.autograd import DeviceType
+
+    prof, wall_us, per_name = device_profile(fn, repeats)
     total = sum(t for t, _, _ in per_name)
     if total == 0:
         log("[profile] torch.profiler recorded no device time")
         return
-    log(f"[profile] {repeats} frames: wall {wall_us / repeats / 1e3:.3f} ms/frame, device "
-        f"busy {total / repeats / 1e3:.3f} ms/frame ({100 * total / wall_us:.1f}% of wall)")
+    log(f"[profile] {repeats} {unit}s: wall {wall_us / repeats / 1e3:.3f} ms/{unit}, device "
+        f"busy {total / repeats / 1e3:.3f} ms/{unit} ({100 * total / wall_us:.1f}% of wall)")
+    log(f"[profile]   {sum(c for _, c, _ in per_name) / repeats:.0f} device calls/{unit}")
     for dev_us, count, name in sorted(per_name, reverse=True)[:top]:
-        log(f"[profile]   {dev_us / repeats / 1e3:8.4f} ms/frame  {count // repeats:4d} calls/frame"
-            f"  {100 * dev_us / total:5.1f}%  {name[:90]}")
+        log(f"[profile]   {dev_us / repeats / 1e3:8.4f} ms/{unit}  {count // repeats:4d} "
+            f"calls/{unit}  {100 * dev_us / total:5.1f}%  {name[:90]}")
+    if host_top:
+        host = [(evt.self_cpu_time_total, evt.count, evt.key) for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CPU]
+        log(f"[profile] host: {sum(c for _, c, _ in host) / repeats:.0f} operators/{unit}, "
+            f"self CPU {sum(t for t, _, _ in host) / repeats / 1e3:.3f} ms/{unit}")
+        for cpu_us, count, name in sorted(host, reverse=True)[:host_top]:
+            log(f"[profile]   {cpu_us / repeats / 1e3:8.4f} ms/{unit}  {count // repeats:4d} "
+                f"calls/{unit}  {name[:90]}")
 
 
 def bound(nbytes: float, ops: float, op_type: str):
@@ -272,6 +367,522 @@ def whole_forward(model, left, right, k, s, label):
             f"|plain| max {b.abs().max().item():.4g}; over {abs_tol} + {rel_tol}|ref|: {over}")
         if not torch.isfinite(a).all() or over:
             raise AssertionError(f"whole forward {label} {key}: kernels and plain disagree")
+
+
+def rel_l2(a, b) -> float:
+    """|a - b|_2 / |b|_2 in float32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def tower_flops(b, h, w) -> float:
+    """Operations of the tower's forward over taps inside the image: per
+    layer 2 * B * (3H - 2d)(3W - 2d) * cin * cout."""
+    from adaptive_stereo_tpu_torch.ops.cuda.tower import DILATIONS
+
+    chans = [(4, 32)] + [(32, 32)] * 6 + [(32, 1)]
+    return sum(2.0 * b * (3 * h - 2 * d) * (3 * w - 2 * d) * ci * co
+               for d, (ci, co) in zip(DILATIONS, chans))
+
+
+def tower_phase(model_cpu, dev, seed, rows):
+    """Phase 7: the tower kernels against tower_ref at the training shape."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (
+        tower_backward_cuda, tower_cuda, tower_forward_cuda, tower_ref)
+
+    b, h, w = 2, 320, 960
+    ref = model_cpu.stereo_net.edge_aware_refinements[0]
+    convs, bns = ref.tower_layers()
+    with torch.no_grad():
+        base = {"kernels": [c.weight.permute(2, 3, 1, 0).to(dev) for c in convs],
+                "biases": [c.bias.to(dev) for c in convs],
+                "gammas": torch.stack([n.weight for n in bns]).to(dev),
+                "betas": torch.stack([n.bias for n in bns]).to(dev)}
+        run_stats = (torch.stack([n.running_mean for n in bns]).to(dev),
+                     torch.stack([n.running_var for n in bns]).to(dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    x0 = torch.rand(b, h, w, 4, generator=g, device=dev)
+    x0[..., 0] *= 60.0  # the upsampled disparity channel, in pixels
+    g_out = torch.randn(b, h, w, 1, generator=g, device=dev)
+
+    def params_for(dt, requires_grad=False):
+        """The weights rounded to dt (the kernels' inputs), as float32 or dt."""
+        out = {}
+        for key, v in base.items():
+            vals = [t.to(dt).float() if key == "kernels" else t.float() for t in v] \
+                if isinstance(v, list) else v.float()
+            if requires_grad:
+                vals = [t.clone().requires_grad_() for t in vals] if isinstance(vals, list) \
+                    else vals.clone().requires_grad_()
+            out[key] = vals
+        return out
+
+    def grads(fn, x, params):
+        y = fn(x, params)
+        gs = torch.autograd.grad((y.float() * g_out).sum(),
+                                 [x] + params["kernels"] + params["biases"]
+                                 + [params["gammas"], params["betas"]])
+        return [t.float() for t in gs]
+
+    names = ["dx0"] + [f"dW{p}" for p in range(8)] + [f"db{p}" for p in range(8)] + \
+        ["dgamma", "dbeta"]
+    # db of the layers followed by a BatchNorm: 0 in exact arithmetic.
+    bn_bias_grads = {f"db{p}" for p in range(7)}
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x0.to(dt)
+        for train in (True, False):
+            mode = "train" if train else "eval"
+            with torch.no_grad():
+                p32 = params_for(dt)
+                want = tower_ref(xd.float(), p32, run_stats, train, buffers=True)
+                plain = tower_ref(xd, {**p32, "kernels": [k.to(dt) for k in p32["kernels"]]},
+                                  run_stats, train, buffers=True)
+                got = tower_forward_cuda(xd, [k.to(dt).contiguous() for k in p32["kernels"]],
+                                         p32["biases"], p32["gammas"], p32["betas"],
+                                         run_stats, train)
+            torch.cuda.synchronize()
+            y_err = (got[0].float() - plain[0].float()).abs().max().item()
+            if dt == torch.float32:
+                pairs = [("y7", got[0], want[0]), ("mu", got[1], want[1]), ("var", got[2], want[2])]
+                pairs += [(f"x{i + 1}", a, r) for i, (a, r) in enumerate(zip(got[3], want[3]))]
+                pairs += [(f"y{i}", a, r) for i, (a, r) in enumerate(zip(got[4], want[4]))]
+                worst = 0.0
+                for name, a, r in pairs:
+                    tol = 1e-4 if name in ("mu", "var") else 1e-3
+                    d = (a.float() - r.float()).abs()
+                    worst = max(worst, d.max().item())
+                    if not bool((d <= tol + 1e-4 * r.float().abs()).all()):
+                        raise AssertionError(f"tower forward f32 {mode} {name}: max abs err "
+                                             f"{d.max().item():.3g}")
+                log(f"[tower] forward f32 {mode}: output, 7 x and 8 y buffers and mu/var within "
+                    f"the f32 band; max abs err {worst:.3g} (|y7| max "
+                    f"{want[0].abs().max().item():.3g})")
+            else:
+                checks = [("y7", 0)] + ([("mu", 1), ("var", 2)] if train else [])
+                for name, i in checks:
+                    e_k = (got[i].float() - want[i].float()).abs()
+                    e_p = (plain[i].float() - want[i].float()).abs()
+                    log(f"[tower] forward bf16 {mode} {name}: error vs f32, kernels max "
+                        f"{e_k.max().item():.4g} mean {e_k.mean().item():.4g}; plain max "
+                        f"{e_p.max().item():.4g} mean {e_p.mean().item():.4g}")
+                    if (e_k.max() > TOWER_BF16_FACTOR * e_p.max()
+                            or e_k.mean() > TOWER_BF16_FACTOR * e_p.mean()):
+                        raise AssertionError(f"tower forward bf16 {mode} {name}: kernel error "
+                                             f"beyond {TOWER_BF16_FACTOR} x the plain bf16's")
+                if train:
+                    errs["fwd"] = y_err
+        # Backward, train mode.
+        p_ref = params_for(torch.float32, requires_grad=True)
+        x_ref = xd.float().clone().requires_grad_()
+        g_ref = grads(lambda x, p: tower_ref(x, p, run_stats, True)[0], x_ref, p_ref)
+        gmax = max(t.abs().max().item() for t in g_ref)
+        if dt == torch.float32:
+            with torch.no_grad():
+                y7, mu, var, xs, ys = tower_ref(xd, params_for(dt), run_stats, True, buffers=True)
+                got = tower_backward_cuda(
+                    g_out, xd, [t.contiguous() for t in xs], [t.contiguous() for t in ys],
+                    [k.contiguous() for k in base["kernels"]], base["gammas"], base["betas"],
+                    mu, var)
+            torch.cuda.synchronize()
+            flat = [got[0]] + list(got[1]) + list(got[2]) + [got[3], got[4]]
+            worst = []
+            for name, a, r in zip(names, flat, g_ref):
+                if name in bn_bias_grads:
+                    ok = a.abs().max().item() <= 1e-4 * gmax
+                    worst.append((a.abs().max().item() / gmax, name))
+                else:
+                    e = rel_l2(a, r)
+                    ok = e <= TOWER_F32_GRAD_L2
+                    worst.append((e, name))
+                if not ok:
+                    raise AssertionError(f"tower backward f32 {name}: {worst[-1]}")
+            log(f"[tower] backward f32 on the plain chain's buffers: every gradient within "
+                f"{TOWER_F32_GRAD_L2} relative L2 (worst {max(worst)})")
+        else:
+            p_k = params_for(dt, requires_grad=True)
+            x_k = xd.clone().requires_grad_()
+            g_k = grads(lambda x, p: tower_cuda(x, {**p, "kernels": [k.to(dt) for k in
+                                                                     p["kernels"]]},
+                                                run_stats, True)[0], x_k, p_k)
+            p_p = params_for(dt, requires_grad=True)
+            x_p = xd.clone().requires_grad_()
+            g_p = grads(lambda x, p: tower_ref(x, {**p, "kernels": [k.to(dt) for k in
+                                                                    p["kernels"]]},
+                                               run_stats, True)[0], x_p, p_p)
+            torch.cuda.synchronize()
+            errs["bwd"] = (g_k[0] - g_p[0]).abs().max().item()
+            for name, a, pl, r in zip(names, g_k, g_p, g_ref):
+                if name in bn_bias_grads:
+                    continue
+                e_k, e_p = rel_l2(a, r), rel_l2(pl, r)
+                log(f"[tower] backward bf16 {name}: relative L2 error vs f32, kernels "
+                    f"{e_k:.4g}, plain {e_p:.4g}")
+                if e_k > TOWER_BF16_FACTOR * e_p + TOWER_F32_GRAD_L2:
+                    raise AssertionError(f"tower backward bf16 {name}: kernel error beyond "
+                                         f"{TOWER_BF16_FACTOR} x the plain bf16's")
+
+    # Times at the training shape, bf16, train mode. The kernels by CUDA
+    # events with the host ahead; the plain chain's forward the same way.
+    # Its backward (autograd.grad over a graph built beforehand) cannot be
+    # enqueued ahead of the device, so its time is the sum of its kernels'
+    # device times (torch.profiler); the kernels' chains get that sum too.
+    dt = torch.bfloat16
+    xd = x0.to(dt)
+    p16 = {**params_for(dt), "kernels": [k.to(dt).contiguous() for k in base["kernels"]]}
+    fwd = lambda: tower_forward_cuda(xd, p16["kernels"], p16["biases"], p16["gammas"],
+                                     p16["betas"], run_stats, True)
+    with torch.no_grad():
+        y7, mu, var, xs, ys = fwd()
+    bwd = lambda: tower_backward_cuda(g_out, xd, xs, ys, p16["kernels"], p16["gammas"],
+                                      p16["betas"], mu, var)
+    p_req = params_for(dt, requires_grad=True)
+    x_req = xd.clone().requires_grad_()
+    leaves = [x_req] + p_req["kernels"] + p_req["biases"] + [p_req["gammas"], p_req["betas"]]
+    y_plain = tower_ref(x_req, {**p_req, "kernels": [k.to(dt) for k in p_req["kernels"]]},
+                        run_stats, True)[0]
+    loss_plain = (y_plain.float() * g_out).sum()
+    plain_bwd_fn = lambda: torch.autograd.grad(loss_plain, leaves, retain_graph=True)
+    plain_fwd_fn = lambda: tower_ref(xd, p16, run_stats, True)
+
+    with torch.no_grad():
+        t_fwd, t_plain = time_ms(fwd, calls=5), time_ms(plain_fwd_fn, calls=5)
+        d_fwd, d_plain_fwd = device_ms(fwd), device_ms(plain_fwd_fn)
+    t_bwd, t_plain_bwd = time_ms(bwd, calls=5), time_ms(plain_bwd_fn, calls=1)
+    d_bwd, d_plain_bwd = device_ms(bwd), device_ms(plain_bwd_fn)
+    del y_plain, loss_plain
+    # The step's yardstick at this layer: the refinement module forward +
+    # backward in train mode, its module path (cuDNN, fused_tower=False)
+    # against fused_tower=True, as the sum of device times.
+    coarse_disp = torch.rand(b, h // 16, w // 16, generator=g, device=dev) * 4
+    refine_ms = {}
+    for fused in (True, False):
+        mod = copy.deepcopy(ref).to(dev).train()
+        mod.dtype, mod.fused_tower = dt, fused
+        mod_params = list(mod.parameters())
+        refine_ms[fused] = device_ms(lambda mod=mod, ps=mod_params: torch.autograd.grad(
+            (mod(coarse_disp, x0[..., 1:]) * g_out).sum(), ps, allow_unused=True))
+    flops = tower_flops(b, h, w)
+    n_pix = b * h * w
+    act_bytes = n_pix * 2  # one bf16 channel
+    fwd_bytes = n_pix * 4 * 2 + (7 * 32 + 1) * act_bytes + 7 * 32 * act_bytes
+    bwd_bytes = act_bytes + n_pix * 4 * 2 + 7 * 32 * act_bytes + (7 * 32 + 1) * act_bytes \
+        + n_pix * 4 * 2
+    log(f"[tower] (2,{h},{w}) bf16 train, kernels: forward {t_fwd}, device sum {d_fwd:.4f} ms; "
+        f"backward {t_bwd}, device sum {d_bwd:.4f} ms. Plain chain (cuDNN F.conv2d + the "
+        f"port's BN and LeakyReLU): forward {t_plain}, device sum {d_plain_fwd:.4f} ms; "
+        f"backward alone (autograd.grad, graph built beforehand) {t_plain_bwd}, device sum "
+        f"{d_plain_bwd:.4f} ms; {flops / 1e9:.2f} GFLOP forward, {2 * flops / 1e9:.2f} "
+        f"GFLOP backward")
+    log(f"[tower] refinement module (2,{h},{w}) bf16 train, forward + backward, device sum: "
+        f"fused_tower=True {refine_ms[True]:.4f} ms, module path (cuDNN, the step's "
+        f"yardstick) {refine_ms[False]:.4f} ms")
+    for name, replaces, t, plain_ms, nbytes, ops, err, wrapper in (
+            ("tower_forward", "tower.py:285", t_fwd, t_plain.ms, fwd_bytes, flops,
+             errs["fwd"], tower_forward_cuda),
+            ("tower_backward", "tower.py:501", t_bwd, d_plain_bwd, bwd_bytes, 2 * flops,
+             errs["bwd"], tower_backward_cuda)):
+        b_ms, b_by = bound(nbytes, ops, "bf16_tensor")
+        log(f"[kernels] {name}: kernel {t}; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
+            f"({b_by})")
+        rows.append(dict(name=name, route="cuda",
+                         source="adaptive_stereo_tpu_torch/csrc/tower.cu",
+                         replaces=f"adaptive_stereo_tpu/ops/pallas/{replaces}", wrapper=wrapper,
+                         max_abs_err=err, ms=t.ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, launches=0))
+
+
+def autograd_phase(params, run_stats, dev, seed):
+    """Phase 8: kernels 1-3 at the training shapes (batch 2, coarse 20x60,
+    D = 12). Their forward outputs against the plain versions, f32 and bf16,
+    kernel 2 in train mode (batch statistics over both images): the cost
+    volume bitwise, the aggregation's out/mu/var within the aggregation
+    band, soft-argmin + FCS within DISP_ABS. Then the gradients of kernels 1
+    and 3 through the wrappers against those through the plain versions.
+    Kernel 2's gradient is not compared here: its backward recomputes
+    through the plain version, so both sides would run the same code."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (
+        aggregate_cost_volume_cuda, aggregate_cost_volume_ref, difference_cost_volume_cuda,
+        difference_cost_volume_ref, soft_argmin_fcs_cuda, soft_argmin_fcs_ref)
+
+    b, d, h, w, c = 2, 12, 20, 60, 32
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+
+    for dt in (torch.float32, torch.bfloat16):
+        fl, fr = rn(b, h, w, c).to(dt), rn(b, h, w, c).to(dt)
+        with torch.no_grad():
+            cv = difference_cost_volume_cuda(fl, fr, d)
+            cv_equal = torch.equal(cv, difference_cost_volume_ref(fl, fr, d))
+            got = aggregate_cost_volume_cuda(cv, params, run_stats, True)
+            want = aggregate_cost_volume_ref(cv, params, run_stats, True)
+            agg = [(n, *agg_band_err(a, r, dt)) for n, a, r in zip(("out", "mu", "var"), got,
+                                                                   want)]
+            cost = want[0].float()
+            sa = max((a - r).abs().max().item() for a, r in zip(soft_argmin_fcs_cuda(cost),
+                                                                 soft_argmin_fcs_ref(cost)))
+        torch.cuda.synchronize()
+        log(f"[autograd] forward at ({b},{d},{h},{w},{c}) {dt}: cost volume bitwise equal "
+            f"{cv_equal}; aggregation train max abs err "
+            + ", ".join(f"{n} {e:.3g}" for n, e, _ in agg)
+            + f" (|ref| max {want[0].float().abs().max().item():.3g}); soft-argmin + FCS on "
+            f"the aggregated cost {sa:.3g}")
+        if not cv_equal:
+            raise AssertionError(f"cost volume {dt} at the training shape: not bitwise equal")
+        if not all(ok for _, _, ok in agg):
+            raise AssertionError(f"aggregation train {dt} at the training shape: {agg}")
+        if sa > DISP_ABS:
+            raise AssertionError(f"soft-argmin + FCS at the training shape: {sa} > {DISP_ABS}")
+
+    def both(fn_k, fn_p, inputs, g_out):
+        out = []
+        for fn in (fn_k, fn_p):
+            xs = [t.detach().clone().requires_grad_() for t in inputs]
+            y = fn(*xs)
+            out.append(torch.autograd.grad((y.float() * g_out).sum(), xs))
+        return out
+
+    fl, fr = rn(b, h, w, c), rn(b, h, w, c)
+    gk, gp = both(lambda x, y: difference_cost_volume_cuda(x, y, d),
+                  lambda x, y: difference_cost_volume_ref(x, y, d), [fl, fr], rn(b, d, h, w, c))
+    cv_err = max((a - r).abs().max().item() for a, r in zip(gk, gp))
+    cost = rn(b, d, h, w) * 5
+    gk, gp = both(lambda x: soft_argmin_fcs_cuda(x)[0], lambda x: soft_argmin_fcs_ref(x)[0],
+                  [cost], rn(b, h, w))
+    sa_err = (gk[0] - gp[0]).abs().max().item()
+    sa_scale = gp[0].abs().max().item()
+    log(f"[autograd] gradients f32: cost volume max abs diff {cv_err:.3g} (the wrapper's "
+        f"backward is plain shift-sums: this checks it and its wiring, not the kernel); "
+        f"soft-argmin max abs diff {sa_err:.3g} (|grad| max {sa_scale:.3g}; the backward "
+        f"uses the kernel's disparity)")
+    if cv_err > 1e-5 or sa_err > 1e-5 * (1 + sa_scale):
+        raise AssertionError("kernel 1 or 3: gradients through the wrapper disagree")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the model's kernel calls to their plain versions (which the
+    wrappers take for CPU tensors only), for a step to compare against."""
+    import adaptive_stereo_tpu_torch.models.aggregation as agg
+    import adaptive_stereo_tpu_torch.models.stereo_net as sn
+    from adaptive_stereo_tpu_torch.ops.cuda import (
+        aggregate_cost_volume_ref, difference_cost_volume_ref, soft_argmin_fcs_ref, tower_ref)
+
+    swaps = [(sn, "difference_cost_volume_cuda", difference_cost_volume_ref),
+             (sn, "soft_argmin_fcs_cuda", soft_argmin_fcs_ref), (sn, "tower_cuda", tower_ref),
+             (agg, "aggregate_cost_volume_cuda", aggregate_cost_volume_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def fork(model, ss, float32=False):
+    """An independent copy of (model, engine state); with float32, the copy
+    computes in float32 (the same weights and state)."""
+    from adaptive_stereo_tpu_torch.engine import DeviceReservoir, FlatStreamState, live_parameters
+
+    m2 = copy.deepcopy(model)
+    if float32:
+        for mod in m2.modules():
+            if isinstance(getattr(mod, "dtype", None), torch.dtype):
+                mod.dtype = None
+    r = ss.reservoir
+    gen = torch.Generator(device=r.values.device)
+    gen.set_state(r.generator.get_state())
+    res = DeviceReservoir(r.left.clone(), r.right.clone(), r.values.clone(),
+                          r.reg_indices.clone(), r.size.clone(), r.count.clone(), gen)
+    return m2, FlatStreamState(
+        params=live_parameters(m2), n_feature=ss.n_feature, m=[t.clone() for t in ss.m],
+        v=[t.clone() for t in ss.v], count=ss.count.clone(), lr=ss.lr.clone(),
+        ema_value=ss.ema_value.clone(), ema_init=ss.ema_init.clone(), reservoir=res,
+        log=ss.log.clone(), log_pos=ss.log_pos.clone())
+
+
+def training_phase(seed, dev, rows):
+    """Phase 9: the adaptation step at bench.py's configuration."""
+    from adaptive_stereo_tpu_torch.engine import (LOG_COLS, init_flat_stream_state,
+                                                  live_parameters, make_flat_streaming_steps)
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+    from adaptive_stereo_tpu_torch.ops.losses import khamis_robust_loss, monodepth_single_loss
+
+    k, s, h, w = 4, 0, 320, 960
+    options = dict(use_er=True, use_vs=True, ood_threshold=12.76, clip_grad_norm=True,
+                   fused_er_forward=True)
+
+    def build(fused_tower):
+        model = StereoModel(k=k, input_scale=s, dtype=torch.bfloat16, device=dev,
+                            fused_siamese=True, fused_tower=fused_tower)
+        return random_init_(model, torch.Generator().manual_seed(seed + 9))
+
+    rng = np.random.RandomState(seed)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    left, right = to_dev(rng.rand(1, h, w, 3)), to_dev(rng.rand(1, h, w, 3))
+    gt = to_dev(rng.rand(1, h, w, 1) * 60)
+    batch = (left, right, gt, left, right, gt, 0)  # bench.py: the same frame, index 0
+
+    def run(model, ss, n, frame=batch):
+        adapt = make_flat_streaming_steps(model, s, k, **options)[0]
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            ss = adapt(ss, *frame)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return ss, times
+
+    wrappers = [row["wrapper"] for row in rows]
+    results = {}
+    for fused_tower in (True, False):
+        model = build(fused_tower)
+        ss = init_flat_stream_state(model, LR, 16, h, w, 64, seed=seed, device=dev)
+        ss, warm = run(model, ss, WARMUP_STEPS)
+        for wrapper in wrappers:
+            wrapper.launches = 0
+        ss, times = run(model, ss, STEPS)
+        launches = {row["name"]: row["wrapper"].launches for row in rows}
+        med = statistics.median(times)
+        results[fused_tower] = (model, ss, med)
+        log(f"[training] fused_tower={fused_tower}: {STEPS} adapt steps at {h}x{w} k={k} bf16 "
+            f"(after {WARMUP_STEPS} warm-up steps, the first {warm[0]:.1f} ms): median "
+            f"{med:.2f} ms/step ({1e3 / med:.2f} steps/s), min {min(times):.2f}, max "
+            f"{max(times):.2f}; launches per step "
+            + ", ".join(f"{n}={c / STEPS:g}" for n, c in launches.items()))
+        if fused_tower:
+            for row in rows:
+                row["train_launches"] = launches[row["name"]]
+                if row["name"].startswith("tower"):
+                    row["launches"] = launches[row["name"]]
+            missing = [n for n, c in launches.items() if (c == 0) != (n == "coarse_head")]
+            if missing:
+                raise AssertionError(f"launch counts of the training path: {launches}")
+        elif launches["tower_forward"] or launches["tower_backward"]:
+            raise AssertionError("fused_tower=False launched the tower kernels")
+        log_rows = ss.log[:int(ss.log_pos)].cpu().numpy()
+        cols = {c: i for i, c in enumerate(LOG_COLS)}
+        if not np.isfinite(log_rows).all():
+            raise AssertionError("the ring log holds non-finite values")
+        last = log_rows[-1]
+        total = lambda col: int(log_rows[:, cols[col]].sum())
+        log(f"[training]   ring log, {len(log_rows)} rows: novel {total('novel')}, did_add "
+            f"{total('did_add')}, do_update {total('do_update')}; last row "
+            + ", ".join(f"{c}={last[i]:.4g}" for c, i in cols.items()))
+    model, ss, med = results[True]
+    log(f"[training] kernels vs cuDNN yardstick (fused_tower=False): {med:.2f} vs "
+        f"{results[False][2]:.2f} ms/step")
+
+    # done and validate steps (eval mode, the tower in eval mode).
+    _, done, validate = make_flat_streaming_steps(model, s, k, **options)
+    ss = done(ss, left, right, gt, 1)
+    ss, avg, size, mean_disp = validate(ss)
+    torch.cuda.synchronize()
+    row = ss.log[(int(ss.log_pos) - 1) % ss.log.shape[0]].cpu().numpy()
+    log(f"[training] done step: {', '.join(f'{c}={v:.4g}' for c, v in zip(LOG_COLS, row))}; "
+        f"validate: mean value {float(avg):.4g}, size {int(size)}, mean |disp| "
+        f"{float(mean_disp):.4g}")
+    if not (np.isfinite(row).all() and np.isfinite([float(avg), float(mean_disp)]).all()):
+        raise AssertionError("done or validate step gave non-finite values")
+
+    # One step with the kernels against one with the plain versions from one
+    # state, on two frames (the sound readings), and one plain step on frame
+    # B against one on frame A (the control: a step as sound in form and
+    # scale whose gradient is wrong), in bf16 and in float32. Per module: the
+    # relative L2 difference of the gradients, and the median |theta -
+    # theta_plain| over the median update of the plain step. Every sound
+    # reading must lie within its limit, every control reading outside it.
+    frame_b = (to_dev(rng.rand(1, h, w, 3)), to_dev(rng.rand(1, h, w, 3)),
+               to_dev(rng.rand(1, h, w, 1) * 60), left, right, gt, 0)
+    owner = {id(p): name for name, p in model.named_parameters()}
+    modules = {}
+    for i, p in enumerate(ss.params):
+        name = owner[id(p)]
+        module = ("feature" if name.startswith("feature_net.") else
+                  "tower" if name.startswith("stereo_net.edge_aware_refinements.") else
+                  "aggregation" if name.startswith(("stereo_net.filter.",
+                                                    "stereo_net.conv3d_alone.")) else None)
+        if module is None:
+            raise AssertionError(f"parameter {name} belongs to no module of the comparison")
+        modules.setdefault(module, []).append(i)
+    stereo = modules["aggregation"] + modules["tower"]
+
+    def loss_grads(m, frame):
+        m.train()
+        l, r, _, er_l, er_r, er_gt, _ = frame
+        out = m(torch.cat([l, er_l]), torch.cat([r, er_r]), side="l", output_cost_volume=True)
+        pred = out[f"pred_disp_l/{s}"]
+        mono = monodepth_single_loss(l, r, pred[:1], 1e-3, max_disp=192)[0]
+        replay = khamis_robust_loss(pred[1:], er_gt)
+        params = live_parameters(m)
+        gs = torch.autograd.grad(mono + 0.05 * replay, params, allow_unused=True)
+        return [torch.zeros_like(p) if t is None else t.float() for t, p in zip(gs, params)]
+
+    def one_step(plain, frame, float32):
+        counts = [wr.launches for wr in wrappers]
+        with plain_versions() if plain else contextlib.nullcontext():
+            gs = loss_grads(fork(model, ss, float32)[0], frame)
+            m_b, ss_b = fork(model, ss, float32)
+            ss_b, _ = run(m_b, ss_b, 1, frame)
+        if plain and [wr.launches for wr in wrappers] != counts:
+            raise AssertionError("the plain-version step launched a kernel")
+        row = ss_b.log[(int(ss_b.log_pos) - 1) % ss_b.log.shape[0]].cpu().numpy()
+        return gs, [p.detach() for p in ss_b.params], row
+
+    def cat(ts, idx):
+        return torch.cat([ts[i].flatten().float() for i in idx])
+
+    def readings(got, ref):
+        (g_a, p_a, row_a), (g_r, p_r, row_r) = got, ref
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+        out = {"mono": rel(row_a[2], row_r[2]), "replay": rel(row_a[3], row_r[3]),
+               "stereo grad norm": rel(cat(g_a, stereo).norm().item(),
+                                       cat(g_r, stereo).norm().item()),
+               "do_update": float(row_a[7] != row_r[7])}
+        for module, idx in modules.items():
+            out[f"{module} grad"] = rel_l2(cat(g_a, idx), cat(g_r, idx))
+            upd = (cat(p_r, idx) - cat(before, idx)).abs().median()
+            out[f"{module} param"] = ((cat(p_a, idx) - cat(p_r, idx)).abs().median()
+                                      / upd).item()
+        return out
+
+    before = [p.detach().clone() for p in ss.params]
+    failed, plain_a = [], {}
+    for label, limits in STEP_LIMITS.items():
+        f32 = label == "float32"
+        plain_a[label], plain_b = one_step(True, batch, f32), one_step(True, frame_b, f32)
+        sound = [readings(one_step(False, batch, f32), plain_a[label]),
+                 readings(one_step(False, frame_b, f32), plain_b)]
+        control = readings(plain_b, plain_a[label])
+        for key in sound[0]:
+            limit = limits.get(key)
+            worst = max(r[key] for r in sound)
+            log(f"[training] one step {label}, kernels vs plain versions, {key}: frame A "
+                f"{sound[0][key]:.4g}, frame B {sound[1][key]:.4g}; limit "
+                f"{'-' if limit is None else f'{limit:g}'}; control (plain, frame B vs A) "
+                f"{control[key]:.4g}")
+            if key == "do_update" and worst:
+                failed.append(f"{label}: do_update differs")
+            if limit is not None and worst > limit:
+                failed.append(f"{label} {key}: sound reading {worst:.4g} > {limit:g}")
+            if limit is not None and control[key] <= limit:
+                failed.append(f"{label} {key}: the control {control[key]:.4g} is within "
+                              f"{limit:g}")
+    noise = readings(plain_a["bfloat16"], plain_a["float32"])
+    log("[training] one step, plain versions bf16 vs float32 (the scale of bf16 rounding), "
+        "frame A: " + ", ".join(f"{key} {v:.4g}" for key, v in noise.items()))
+    if failed:
+        raise AssertionError("training step, kernels vs plain versions: " + "; ".join(failed))
+
+    log("[profile] training, fused_tower=True")
+    adapt = make_flat_streaming_steps(model, s, k, **options)[0]
+    profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=15, unit="step", host_top=10)
+    log("[profile] training, fused_tower=False (yardstick)")
+    m_y, ss_y, _ = results[False]
+    adapt_y = make_flat_streaming_steps(m_y, s, k, **options)[0]
+    profile_breakdown(lambda: adapt_y(ss_y, *batch), repeats=3, top=8, unit="step", host_top=5)
 
 
 def main() -> int:
@@ -522,9 +1133,16 @@ def main() -> int:
         log(f"[profile] fused_coarse_head={fused}")
         profile_breakdown(lambda: engines[fused].process(*frames[0]))
 
+    # Phase 7: the tower kernels; phase 8: autograd of kernels 1-3.
+    tower_phase(model_cpu, dev, args.seed, rows)
+    autograd_phase(params, run_stats, dev, args.seed)
+
+    # Phase 9: training.
+    training_phase(args.seed, dev, rows)
+
     table = [{key: row[key] for key in ("name", "route", "source", "replaces", "launches",
-                                        "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")} for row in rows]
+                                        "train_launches", "max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")} for row in rows]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

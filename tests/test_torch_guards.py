@@ -12,6 +12,7 @@ import torch
 
 import adaptive_stereo_tpu_torch
 from adaptive_stereo_tpu_torch import resolve_device
+from adaptive_stereo_tpu_torch.engine import init_device_reservoir, init_flat_stream_state
 from adaptive_stereo_tpu_torch.models import StereoModel
 from adaptive_stereo_tpu_torch.ops.cuda import _build
 from adaptive_stereo_tpu_torch.serving import ServingConfig, StereoDepthEngine
@@ -55,7 +56,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     sds = (model.feature_net.state_dict(), model.stereo_net.state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StereoDepthEngine(ServingConfig(), sds)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_flat_stream_state(model, 5e-5, 16, 32, 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_device_reservoir(16, 32, 64)
     assert resolve_device("cpu") == torch.device("cpu")
+    ss = init_flat_stream_state(model, 5e-5, 4, 32, 64, 8, device="cpu")
+    assert ss.reservoir.left.device.type == ss.log.device.type == "cpu"
 
 
 def test_kernel_modules_import_without_cuda_or_nvcc(tmp_path):
@@ -91,7 +98,8 @@ def test_library_name_follows_the_sources():
     assert path.parent == PORT / "_build"
     assert path.name.startswith("libstereo_kernels_") and path.suffix == ".so"
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu", "coarse_head.cu"}
+    assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu", "coarse_head.cu",
+                     "tower.cu"}
     ignored = (REPO / ".gitignore").read_text().split()
     assert "adaptive_stereo_tpu_torch/_build/" in ignored
 

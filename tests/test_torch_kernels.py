@@ -14,8 +14,16 @@ twin (five stacked float32 convolutions of 864 terms each). The fused
 coarse head: disparity and FCS within the aggregation band (they are
 functions of the aggregated cost), batch mu/var 1e-4 relative + 1e-5
 absolute (float32 means over B*D*H*W in different orders).
+
+Backward of kernels 1-3: on the card each wrapper is a
+torch.autograd.Function whose backward is plain PyTorch. These tests drive
+those Functions on the CPU, with the kernel launch replaced by the plain
+forward, and hold the gradients against jax.vjp of the Pallas functions:
+the cost volume bitwise (sums of the same float32 terms in the same order),
+soft-argmin 1e-5 absolute and relative, aggregation the aggregation band.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,12 +36,16 @@ from adaptive_stereo_tpu.ops.pallas import (
     difference_cost_volume_pallas,
     soft_argmin_fcs_pallas,
 )
+from adaptive_stereo_tpu_torch.ops.cuda import aggregation as agg_mod
+from adaptive_stereo_tpu_torch.ops.cuda import cost_volume as cv_mod
+from adaptive_stereo_tpu_torch.ops.cuda import disparity as disp_mod
 from adaptive_stereo_tpu_torch.ops.cuda import (
     aggregate_cost_volume_cuda,
     coarse_head_cuda,
     coarse_head_cuda_supported,
     difference_cost_volume_cuda,
     soft_argmin_fcs_cuda,
+    tower_cuda,
 )
 
 DISP_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -176,4 +188,69 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA tensor"):
             coarse_head_cuda(f, f, _torch(params), tuple(map(torch.from_numpy, stats)),
                              train, 12)
+        tower = {"kernels": [torch.zeros(3, 3, 4, 32)] + [torch.zeros(3, 3, 32, 32)] * 6
+                 + [torch.zeros(3, 3, 32, 1)], "biases": [torch.zeros(32)] * 7 + [torch.zeros(1)],
+                 "gammas": torch.ones(7, 32), "betas": torch.zeros(7, 32)}
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tower_cuda(torch.empty(1, 8, 16, 4, device="meta"), tower,
+                       (torch.zeros(7, 32), torch.ones(7, 32)), train)
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("b,h,w,c,d", [(1, 4, 12, 8, 5), (2, 3, 6, 4, 8)])
+def test_cost_volume_backward_matches_pallas_vjp(monkeypatch, b, h, w, c, d):
+    rng = np.random.RandomState(w)
+    fl, fr = (rng.randn(b, h, w, c).astype(np.float32) for _ in range(2))
+    g = rng.randn(b, d, h, w, c).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, y: difference_cost_volume_pallas(x, y, d, interpret=True),
+                     jnp.asarray(fl), jnp.asarray(fr))
+    ref = vjp(jnp.asarray(g))
+    monkeypatch.setattr(cv_mod, "_launch", lambda x, y, n: cv_mod.difference_cost_volume_ref(
+        x.detach(), y.detach(), n))
+    tl, tr = (torch.from_numpy(x).requires_grad_() for x in (fl, fr))
+    out = cv_mod._CostVolume.apply(tl, tr, d)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(tl.grad.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(tr.grad.numpy(), np.asarray(ref[1]))
+
+
+def test_soft_argmin_backward_matches_pallas_vjp(monkeypatch):
+    rng = np.random.RandomState(3)
+    cost = (rng.randn(2, 12, 4, 8) * 5).astype(np.float32)
+    g = rng.randn(2, 4, 8).astype(np.float32)
+    (_, _), vjp = jax.vjp(lambda c: soft_argmin_fcs_pallas(c, interpret=True), jnp.asarray(cost))
+    ref, = vjp((jnp.asarray(g), jnp.zeros((2, 4, 8), jnp.float32)))
+    monkeypatch.setattr(disp_mod, "_launch",
+                        lambda c: tuple(t.detach() for t in disp_mod.soft_argmin_fcs_ref(c)))
+    t = torch.from_numpy(cost).requires_grad_()
+    disp, fcs = disp_mod._SoftArgminFcs.apply(t)
+    assert not fcs.requires_grad
+    disp.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), **DISP_TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_aggregation_backward_matches_pallas_vjp(monkeypatch, train):
+    cost, params, stats = _agg_inputs(np.random.RandomState(21), 2, 5, 3, 8)
+    g = np.random.RandomState(22).randn(2, 5, 3, 8).astype(np.float32)
+    jstats = tuple(map(jnp.asarray, stats))
+    _, vjp = jax.vjp(lambda c, p: aggregate_cost_volume_pallas(c, p, jstats, train,
+                                                               interpret=True)[0],
+                     jnp.asarray(cost), _jax(params))
+    g_cost, g_params = vjp(jnp.asarray(g))
+
+    def launch(c, p, run_stats, tr, eps):
+        return tuple(t.detach() for t in agg_mod.aggregate_cost_volume_ref(c, p, run_stats,
+                                                                          tr, eps))
+
+    monkeypatch.setattr(agg_mod, "_launch", launch)
+    tc = torch.from_numpy(cost).requires_grad_()
+    tp = {k: v.requires_grad_() for k, v in _torch(params).items()}
+    out, mu, var = agg_mod._Aggregation.apply(tc, *map(torch.from_numpy, stats), train, 1e-5,
+                                              *(tp[n] for n in agg_mod.PARAM_NAMES))
+    assert not mu.requires_grad and not var.requires_grad
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(g_cost), **AGG_TOL)
+    for name in agg_mod.PARAM_NAMES:
+        np.testing.assert_allclose(tp[name].grad.numpy(), np.asarray(g_params[name]),
+                                   err_msg=name, **AGG_TOL)

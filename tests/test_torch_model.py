@@ -205,13 +205,6 @@ def test_state_dicts_match_the_jax_exporter_and_load_strictly():
     assert sorted(model.stereo_net.state_dict()) == sorted(ref_s)
 
 
-def test_train_mode_is_refused():
-    model = StereoModel(k=3, input_scale=1, device="cpu")
-    x = torch.zeros(1, 32, 64, 3)
-    with pytest.raises(NotImplementedError):
-        model.train()(x, x)
-
-
 def test_random_init_is_seeded():
     a = random_init_(StereoModel(k=3, device="cpu"), torch.Generator().manual_seed(3))
     b = random_init_(StereoModel(k=3, device="cpu"), torch.Generator().manual_seed(3))
