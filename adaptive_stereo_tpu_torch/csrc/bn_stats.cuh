@@ -1,5 +1,6 @@
 // Train-mode BatchNorm statistics across thread blocks, deterministic:
-// shared by csrc/aggregation.cu (kernel 2) and csrc/coarse_head.cu (kernel 4).
+// shared by csrc/aggregation.cu (kernel 2), csrc/coarse_head.cu (kernel 4)
+// and csrc/tower.cu (kernel 5).
 //
 // The statistics of channel c are over every (b, d, h, w) position of a
 // (B, D, H, W, C) activation, in f32 semantics with the fast variance:
@@ -8,20 +9,20 @@
 //
 // Two steps, with no float atomics, so the result does not change from run
 // to run:
-//   1. bn_block_partials: for each tile of the volume, the block that
-//      computed it writes the tile's per-channel sums of y and y^2 into the
-//      tile's own row of a scratch array partials[tile][2][C] that the
-//      wrapper allocates;
-//   2. bn_finalize: one block sums the rows in a fixed order (in double)
-//      and writes mu and var.
-// Between the two, every row must be written: a launch boundary (kernel 2)
-// or a grid-wide barrier (kernel 4).
+//   1. for each tile of the volume, the block that computed it writes the
+//      tile's per-channel sums of y and y^2 into the tile's own row of a
+//      scratch array partials[tile][2][C] that the wrapper allocates;
+//   2. bn_finalize: one block of STEREO_BN_TILE threads sums the rows in a
+//      fixed order (in double) and writes mu and var.
+// Between the two, every row must be written: a launch boundary (kernels 2
+// and 5) or a grid-wide barrier (kernel 4).
 //
-// A row holds the sums of one tile of STEREO_BN_TILE consecutive elements,
-// one element per thread of a block of STEREO_BN_TILE threads, so thread t
-// holds channel t % C (C divides the tile). Kernels that cut the volume into
-// the same tiles get the same rows, and so the same mu and var, whatever
-// their grid.
+// The tower's tiles are STEREO_BN_TILE consecutive elements, one element
+// per thread of a block of STEREO_BN_TILE threads, so thread t holds
+// channel t % C (C divides the tile): bn_block_partials. Kernels 2 and 4
+// use the row tiles of conv3d.cuh (tile_partials there). Kernels that cut
+// the volume into the same tiles get the same rows, and so the same mu and
+// var, whatever their grid.
 #pragma once
 
 #include "common.cuh"

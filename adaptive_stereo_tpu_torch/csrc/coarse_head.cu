@@ -20,40 +20,33 @@
 // us at 3.35 TB/s. The volume and the five activations never need to reach
 // device memory.
 //
-// Design (simple first). A bf16 activation at the serving shape is 1.17 MB,
-// far over one block's 227 KB of shared memory, and recomputing halos
-// through five 3x3x3 layers would need +-5 in d, h and w. So the kernel is
-// ONE cooperative launch (cudaLaunchCooperativeKernel), as many blocks as
-// can be resident at once, grid-stride loops, and a grid-wide barrier
-// (cooperative_groups grid.sync) after the cost build and after each layer.
-// The activations ping-pong between two scratch buffers that the wrapper
-// allocates; at 1.17 MB each they stay in the 50 MB L2. Each output of a
-// layer is the body of conv3d.cuh (the same arithmetic, in the same order,
-// as csrc/aggregation.cu), and the epilogue is the body of
-// soft_argmin_fcs.cuh (as csrc/disparity.cu), so in eval mode this kernel
-// reproduces kernels 1-3 composed bit for bit. In train mode each BN layer
-// adds partial sums per tile of 256 elements, a barrier, a fixed-order
-// reduction by block 0 (bn_stats.cuh), a barrier, and BatchNorm + LeakyReLU
-// in place; the tiles are csrc/aggregation.cu's, so train mode too matches
-// kernel 2 bit for bit, and does not depend on the grid size. Like
-// kernel 2 it runs on the CUDA cores, not the tensor cores, so it is far
-// from its bound; what it removes is four launches and the volume's trips
-// between kernels. It is slower than kernels 1-3 in turn all the same: the
-// whole head in one function takes 128 registers a thread, so an SM holds
-// half the warps it holds of kernel 2, and the conv, which waits on L1,
-// hides less of that wait (PERF.md). The TPU kernel's 128-lane packing, tap
-// matrices and W % 4 limit are TPU matters and are not carried over.
+// Design. A bf16 activation at the serving shape is 1.17 MB, far over one
+// block's 227 KB of shared memory, and recomputing halos through five
+// 3x3x3 layers would need +-5 in d, h and w. So the kernel is ONE
+// cooperative launch (cudaLaunchCooperativeKernel), as many blocks as can
+// be resident at once, and a grid-wide barrier (cooperative_groups
+// grid.sync) after the cost build and after each layer. The activations
+// ping-pong between two scratch buffers that the wrapper allocates; at 1.17
+// MB each they stay in the 50 MB L2. Each layer walks the row tiles of
+// csrc/aggregation.cu, tile j on block j % gridDim.x, with the same block
+// size and the same body (conv3d.cuh: in bf16 the staged implicit GEMM on
+// the tensor cores, in f32 the CUDA-core sum); a block stages each layer's
+// weights once for all its tiles. The epilogue is the body of
+// soft_argmin_fcs.cuh (as csrc/disparity.cu). So this kernel reproduces
+// kernels 1-3 composed bit for bit, in eval mode and in train mode, where
+// each BN layer adds the tiles' partial sums, a barrier, a fixed-order
+// reduction by block 0 (bn_stats.cuh, with kernel 2's block size), a
+// barrier, and BatchNorm + LeakyReLU in place. The TPU kernel's 128-lane
+// packing, tap matrices and W % 4 limit are TPU matters and are not carried
+// over.
 
 #include <cooperative_groups.h>
 
-#include "bn_stats.cuh"
 #include "conv3d.cuh"
 #include "soft_argmin_fcs.cuh"
 
 namespace cg = cooperative_groups;
 
-// One tile of partial sums per block and step of the layers (bn_stats.cuh).
-#define STEREO_HEAD_THREADS STEREO_BN_TILE
 #define STEREO_HEAD_BN_LAYERS 4
 
 // The kernel's arguments; the T-typed arrays (features, conv weights,
@@ -76,16 +69,16 @@ struct CoarseHeadArgs {
   void* act0;                  // (B, D, H, W, C) T scratch
   void* act1;                  // (B, D, H, W, C) T scratch
   float* cost;                 // (B, D, H, W) scratch: the final conv output
-  float* partials;             // (ceil(B*D*H*W*C / 256), 2, C) scratch
-  int B, H, W, C, D, train;
+  float* partials;             // (ntiles, 2, C) scratch
+  int64_t ntiles;              // row tiles of the volume (conv3d.cuh)
+  int B, H, W, C, D, wc, train;
   float eps, slope;
 };
 
-// Two blocks on each SM: up to 128 registers a thread, which the kernel
-// uses without spilling. Of the caps that fit one to four blocks on an SM,
-// this one ran fastest on the H100; three and four spill.
+// Two blocks on each SM: the bf16 staging takes about 100 KB of shared
+// memory a block, and 128 registers a thread leave room for both.
 template <typename T>
-__global__ void __launch_bounds__(STEREO_HEAD_THREADS, 2)
+__global__ void __launch_bounds__(STEREO_CONV_THREADS, 2)
     coarse_head_kernel(const CoarseHeadArgs a) {
   cg::grid_group grid = cg::this_grid();
   const T* fl = static_cast<const T*>(a.fl);
@@ -94,6 +87,7 @@ __global__ void __launch_bounds__(STEREO_HEAD_THREADS, 2)
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t nvol = static_cast<int64_t>(B) * D * H * W * C;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
   // Cost build into act0, as csrc/cost_volume.cu.
   for (int64_t i = tid; i < nvol; i += stride) {
@@ -114,42 +108,29 @@ __global__ void __launch_bounds__(STEREO_HEAD_THREADS, 2)
   }
   grid.sync();
 
-  // The layers walk the volume in tiles of STEREO_HEAD_THREADS consecutive
-  // elements, tile j on block j % gridDim.x: the tiles, and so the rows of
-  // partial sums, are those of csrc/aggregation.cu's train-mode launch (one
-  // tile per block there), whatever the grid size.
-  const int64_t ntiles = (nvol + blockDim.x - 1) / blockDim.x;
+  const int64_t ntiles = a.ntiles;
   T* src = static_cast<T*>(a.act0);
   T* dst = static_cast<T*>(a.act1);
   for (int layer = 0; layer < STEREO_HEAD_BN_LAYERS; ++layer) {
     const T* k = static_cast<const T*>(a.kernels) + static_cast<int64_t>(layer) * 27 * C * C;
-    const float* bias = a.biases + layer * C;
     const float* gamma = a.scales + layer * C;
     const float* beta = a.bn_biases + layer * C;
     float* mu = a.mu + layer * C;
     float* var = a.var + layer * C;
-    for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int64_t i = tile * blockDim.x + threadIdx.x;
-      float y = 0.0f;
-      if (i < nvol) {
-        const int co = static_cast<int>(i % C);
-        int64_t r = i / C;
-        const int w = static_cast<int>(r % W);
-        r /= W;
-        const int h = static_cast<int>(r % H);
-        r /= H;
-        const int d = static_cast<int>(r % D);
-        const int b = static_cast<int>(r / D);
-        y = conv3d_round<T>(conv3d_tap_sum<T>(src, k, b, d, h, w, co, D, H, W, C, C),
-                            bias[co]);
-        if (!a.train)
-          y = bn_leaky(y, a.rmean[layer * C + co], a.rvar[layer * C + co], gamma[co],
-                       beta[co], a.eps, a.slope);
-        dst[i] = from_float<T>(y);
-      }
-      // Uniform across the block: every thread runs the same tiles.
-      if (a.train) bn_block_partials(y, y * y, C, a.partials + tile * 2 * C);
-    }
+    const ConvLayer conv{k,
+                         a.biases + layer * C,
+                         a.rmean + layer * C,
+                         a.rvar + layer * C,
+                         gamma,
+                         beta,
+                         a.train ? kConvStats : kConvBnLeaky,
+                         a.eps,
+                         a.slope};
+    if constexpr (kBf16)
+      if (blockIdx.x < ntiles) stage_weights<STEREO_CONV_C>(k, tile_weights(conv_smem(), a.wc));
+    for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+      conv3d_row_tile<T, STEREO_CONV_C, T>(src, conv, row_tile(tile, D, H, W, a.wc), D, H, W,
+                                           a.wc, dst, a.partials + tile * 2 * C);
     if (a.train) {
       grid.sync();
       if (blockIdx.x == 0) bn_finalize(a.partials, ntiles, C, B * D * H * W, mu, var);
@@ -169,20 +150,15 @@ __global__ void __launch_bounds__(STEREO_HEAD_THREADS, 2)
     dst = t;
   }
 
-  // Final conv 32->1, one thread per (b, d, h, w), into the f32 cost.
-  const int64_t ncost = static_cast<int64_t>(B) * D * H * W;
-  for (int64_t i = tid; i < ncost; i += stride) {
-    int64_t r = i;
-    const int w = static_cast<int>(r % W);
-    r /= W;
-    const int h = static_cast<int>(r % H);
-    r /= H;
-    const int d = static_cast<int>(r % D);
-    const int b = static_cast<int>(r / D);
-    a.cost[i] = conv3d_round<T>(
-        conv3d_tap_sum<T>(src, static_cast<const T*>(a.final_kernel), b, d, h, w, 0, D, H, W,
-                          C, 1), a.final_bias[0]);
-  }
+  // Final conv 32->1 into the f32 cost (B, D, H, W), the same row tiles.
+  const ConvLayer final_conv{a.final_kernel, a.final_bias, nullptr, nullptr, nullptr, nullptr,
+                             kConvOnly,      a.eps,        a.slope};
+  if constexpr (kBf16)
+    if (blockIdx.x < ntiles)
+      stage_weights<1>(static_cast<const T*>(a.final_kernel), tile_weights(conv_smem(), a.wc));
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+    conv3d_row_tile<T, 1, float>(src, final_conv, row_tile(tile, D, H, W, a.wc), D, H, W,
+                                 a.wc, a.cost, nullptr);
   grid.sync();
 
   // Soft-argmin + FCS per pixel.
@@ -193,18 +169,20 @@ __global__ void __launch_bounds__(STEREO_HEAD_THREADS, 2)
   }
 }
 
-// partials holds nparts rows of 2 * C floats, one per tile of
-// STEREO_BN_TILE elements of the volume: nparts = ceil(B*D*H*W*C /
-// STEREO_BN_TILE). Returns a CUDA error code (0 on success).
+// partials holds nparts rows of 2 * C floats, one per row tile of the
+// volume: nparts = tile_count(B, D, H, W, wc); wc and smem are
+// ops/cuda/aggregation.py:tile_plan's. Returns a CUDA error code (0 on
+// success).
 extern "C" int stereo_coarse_head_forward(
     const void* fl, const void* fr, const void* kernels, const void* biases,
     const void* scales, const void* bn_biases, const void* rmean, const void* rvar,
     const void* final_kernel, const void* final_bias, void* disp, void* fcs, void* mu,
     void* var, void* act0, void* act1, void* cost, void* partials, int nparts, int B, int H,
-    int W, int C, int D, int train, float eps, float slope, int dtype, void* stream) {
-  const int64_t nvol = static_cast<int64_t>(B) * D * H * W * C;
-  if (B < 1 || H < 1 || W < 1 || D < 3 || C < 1 || STEREO_HEAD_THREADS % C != 0 ||
-      blocks_for(nvol, STEREO_HEAD_THREADS) != static_cast<unsigned>(nparts))
+    int W, int C, int D, int wc, int smem, int train, float eps, float slope, int dtype,
+    void* stream) {
+  if (B < 1 || H < 1 || W < 1 || D < 3 || C != STEREO_CONV_C || wc < 1 ||
+      wc > STEREO_TILE_MAX_W || smem != tile_smem(dtype, wc) ||
+      tile_count(B, D, H, W, wc) != nparts)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* fn;
   if (dtype == kFloat32) {
@@ -215,14 +193,17 @@ extern "C" int stereo_coarse_head_forward(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  // Above 48 KB of dynamic shared memory a launch needs the attribute, and
+  // the occupancy (every block resident for the grid barrier) depends on it.
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, STEREO_HEAD_THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, STEREO_CONV_THREADS,
+                                                        smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // Every block must be resident at once for the grid barrier; more blocks
-  // than tiles would have nothing to do.
+  // More blocks than tiles would have nothing to do in the layers.
   const int blocks = per_sm * sms < nparts ? per_sm * sms : nparts;
   if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   CoarseHeadArgs args{
@@ -231,9 +212,9 @@ extern "C" int stereo_coarse_head_forward(
       static_cast<const float*>(rvar), final_kernel, static_cast<const float*>(final_bias),
       static_cast<float*>(disp), static_cast<float*>(fcs), static_cast<float*>(mu),
       static_cast<float*>(var), act0, act1, static_cast<float*>(cost),
-      static_cast<float*>(partials), B, H, W, C, D, train, eps, slope};
+      static_cast<float*>(partials), nparts, B, H, W, C, D, wc, train, eps, slope};
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(STEREO_HEAD_THREADS), params, 0,
+  err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(STEREO_CONV_THREADS), params, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

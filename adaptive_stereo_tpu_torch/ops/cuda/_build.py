@@ -47,13 +47,12 @@ _F = ctypes.c_float
 # ctypes never truncates a 64-bit address to a 32-bit int.
 _SIGNATURES = {
     "stereo_cost_volume_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "stereo_conv3d_bn_leaky_forward": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "stereo_conv3d_stats_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "stereo_conv3d_bn_leaky_forward": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "stereo_conv3d_stats_forward": [_P] * 5 + [_I] * 8 + [_P],
     "stereo_bn_stats_finalize": [_P, _I, _I, _I, _P, _P, _P],
     "stereo_bn_leaky_apply": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
     "stereo_soft_argmin_fcs_forward": [_P, _P, _P, _I, _I, _I, _P],
-    "stereo_coarse_head_forward": [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P],
+    "stereo_coarse_head_forward": [_P] * 18 + [_I] * 9 + [_F, _F, _I, _P],
     "stereo_tower_conv": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
     "stereo_tower_grad_y": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     "stereo_tower_wgrad": [_P] * 3 + [_I] * 8 + [_P],
@@ -90,9 +89,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libstereo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_report_path() -> Path:
+    """Where build(verbose=True) keeps nvcc's -Xptxas -v report."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the shared library unless it exists already.
-    Returns its path; raises RuntimeError with nvcc's stderr on failure."""
+    Returns its path; raises RuntimeError with nvcc's stderr on failure.
+    verbose adds -Xptxas -v (registers, shared memory and spills of every
+    kernel), prints nvcc's report and keeps it beside the library in
+    ptxas_report_path()."""
     out = library_path()
     if out.exists():
         return out
@@ -111,6 +118,7 @@ def build(verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)
     if verbose:
+        ptxas_report_path().write_text(proc.stderr)
         print(proc.stderr, end="", flush=True)
         print(f"built {out.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
@@ -138,6 +146,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """Refuse a tensor whose data does not start on an nbytes boundary: the
+    conv kernels stage it in 16-byte chunks (cp.async)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must start on a {nbytes}-byte boundary")
+
+
 def require_cuda(t: torch.Tensor, name: str, dtypes=None,
                  shape: Optional[tuple] = None) -> None:
     """Validate a tensor handed to a kernel: on CUDA, contiguous, of an
@@ -150,12 +165,3 @@ def require_cuda(t: torch.Tensor, name: str, dtypes=None,
         raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes {list(dtypes)}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """For a kernel without a backward: refuse inputs that would need one
-    rather than return an output cut off from autograd."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only on CUDA; call it under torch.no_grad() "
-            "or torch.inference_mode()")

@@ -19,7 +19,8 @@ launches csrc/aggregation.cu on CUDA tensors, and takes the plain version
 for CPU tensors only. Eval mode is one launch per layer (five); train mode
 adds, per BatchNorm layer, the batch statistics (a deterministic reduction
 across blocks, csrc/bn_stats.cuh) and the normalisation as launches of
-their own (thirteen in all).
+their own (thirteen in all). Each layer launch runs one block per row tile
+of tile_plan (csrc/conv3d.cuh), shared with the fused coarse head.
 
 On CUDA the wrapper is a torch.autograd.Function, differentiable in the cost
 and the params (the running statistics carry no gradient, nor do mu/var).
@@ -30,23 +31,56 @@ it, with the incoming gradient cast to float32 and then to the cost's dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref"]
+__all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref", "tile_plan"]
 
 PARAM_NAMES = ("kernels", "biases", "scales", "bn_biases", "final_kernel", "final_bias")
 
 LEAKY_SLOPE = 0.2
 NUM_BN_LAYERS = 4
 CHANNELS = 32
-# Elements per tile of train-mode partial sums, and threads per block of the
-# kernels that write them (STEREO_BN_TILE in csrc/bn_stats.cuh).
-THREADS = 256
+# Most w positions of one row tile (STEREO_TILE_MAX_W in csrc/conv3d.cuh).
+TILE_MAX_W = 80
+
+
+class TilePlan(NamedTuple):
+    """How csrc/conv3d.cuh cuts a (B, D, H, W) volume into row tiles: each
+    tile is one (b, d, h) and a run of at most wc consecutive w, one block
+    each; tile j covers w from (j % tiles_per_row) * wc of row
+    j // tiles_per_row. nparts is the number of tiles, the rows of the
+    train-mode partial sums; smem is a block's dynamic shared memory."""
+    wc: int
+    tiles_per_row: int
+    nparts: int
+    smem: int
+
+
+def tile_plan(b: int, d: int, h: int, w: int, dtype: torch.dtype = torch.bfloat16) -> TilePlan:
+    """The row split for every width: as few tiles per row as runs of at
+    most TILE_MAX_W allow, of nearly equal length (W = 76: one tile of 76;
+    W = 300: four of 75). bfloat16 stages the halo, 3 x 3 x (mt + 2) rows
+    of 32 channels with mt = wc rounded up to 16, and the 27 x 32 x 32
+    weights: at most 102,528 bytes, so two blocks fit on an SM. float32
+    stages nothing."""
+    per_row = -(-w // TILE_MAX_W)
+    wc = -(-w // per_row)
+    per_row = -(-w // wc)
+    mt = -(-wc // 16) * 16
+    smem = 9 * (mt + 2) * CHANNELS * 2 + 27 * CHANNELS * CHANNELS * 2 \
+        if dtype == torch.bfloat16 else 0
+    return TilePlan(wc, per_row, b * d * h * per_row, smem)
+
+
+def _partials(plan: TilePlan, device) -> torch.Tensor:
+    """Scratch for the train-mode partial sums: one row of (sum y, sum y^2)
+    per channel for each row tile."""
+    return torch.empty((plan.nparts, 2, CHANNELS), dtype=torch.float32, device=device)
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -66,6 +100,7 @@ def _stack_weights(params: Dict[str, torch.Tensor],
     def weights(kernel, cout):
         k = kernel.to(cdtype).contiguous()
         _build.require_cuda(k, "kernel", shape=(3, 3, 3, CHANNELS, cout))
+        _build.require_aligned(k, "kernel")
         return k
 
     def f32(v, name, n):
@@ -163,17 +198,18 @@ def _launch(cost, params, run_stats, train, eps):
     _build.require_cuda(cost, "cost", tuple(_build.DTYPE_CODES))
     if cost.dim() != 5 or cost.shape[-1] != CHANNELS:
         raise ValueError(f"cost must be (B, D, H, W, {CHANNELS}), got {tuple(cost.shape)}")
+    _build.require_aligned(cost, "cost")
     b, d, h, w, _ = cost.shape
     cdtype = cost.dtype
     dev = cost.device
     dcode = _build.DTYPE_CODES[cdtype]
     layers, final = _stack_weights(params, run_stats, cdtype)
+    plan = tile_plan(b, d, h, w, cdtype)
     n = cost.numel()
     if train:
         mu = torch.empty((NUM_BN_LAYERS, CHANNELS), dtype=torch.float32, device=dev)
         var = torch.empty_like(mu)
-        nparts = -(-n // THREADS)
-        partials = torch.empty((nparts, 2, CHANNELS), dtype=torch.float32, device=dev)
+        partials = _partials(plan, dev)
 
     lib = _build.library()
     x = cost
@@ -185,17 +221,17 @@ def _launch(cost, params, run_stats, train, eps):
                 _build.check(lib.stereo_conv3d_bn_leaky_forward(
                     x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rmean.data_ptr(),
                     rvar.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-                    b, d, h, w, CHANNELS, CHANNELS, 1, eps, LEAKY_SLOPE, dcode, stream),
-                    "stereo_conv3d_bn_leaky_forward")
+                    b, d, h, w, CHANNELS, 1, plan.wc, plan.smem, eps, LEAKY_SLOPE, dcode,
+                    stream), "stereo_conv3d_bn_leaky_forward")
                 aggregate_cost_volume_cuda.launches += 1
                 x = out
                 continue
             _build.check(lib.stereo_conv3d_stats_forward(
                 x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                partials.data_ptr(), nparts, b, d, h, w, CHANNELS, CHANNELS, dcode, stream),
-                "stereo_conv3d_stats_forward")
+                partials.data_ptr(), plan.nparts, b, d, h, w, plan.wc, plan.smem, dcode,
+                stream), "stereo_conv3d_stats_forward")
             _build.check(lib.stereo_bn_stats_finalize(
-                partials.data_ptr(), nparts, CHANNELS, n // CHANNELS, mu[i].data_ptr(),
+                partials.data_ptr(), plan.nparts, CHANNELS, n // CHANNELS, mu[i].data_ptr(),
                 var[i].data_ptr(), stream), "stereo_bn_stats_finalize")
             _build.check(lib.stereo_bn_leaky_apply(
                 out.data_ptr(), mu[i].data_ptr(), var[i].data_ptr(), gamma.data_ptr(),
@@ -207,8 +243,8 @@ def _launch(cost, params, run_stats, train, eps):
         out = torch.empty((b, d, h, w, 1), dtype=cdtype, device=dev)
         _build.check(lib.stereo_conv3d_bn_leaky_forward(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), None, None, None, None,
-            out.data_ptr(), b, d, h, w, CHANNELS, 1, 0, eps, LEAKY_SLOPE, dcode, stream),
-            "stereo_conv3d_bn_leaky_forward")
+            out.data_ptr(), b, d, h, w, 1, 0, plan.wc, plan.smem, eps, LEAKY_SLOPE, dcode,
+            stream), "stereo_conv3d_bn_leaky_forward")
         aggregate_cost_volume_cuda.launches += 1
     if train:
         return out[..., 0], mu, var

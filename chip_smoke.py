@@ -4,13 +4,17 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); fails without CUDA
-  2. build    nvcc builds adaptive_stereo_tpu_torch/csrc/*.cu for sm_90a
+  2. build    nvcc builds adaptive_stereo_tpu_torch/csrc/*.cu for sm_90a; the
+              -Xptxas -v registers, shared memory and spills and the SASS
+              HMMA count of kernels 2 and 4 (no spills; HMMA in bf16)
   3. kernels  each kernel against its plain PyTorch version on the card at the
               serving shapes (320x1216, k=4: features (1,20,76,32), cost volume
               (1,12,20,76,32), cost (1,12,20,76)), with times by CUDA events:
-              kernels 1-3, kernel 2 in train mode, and the fused coarse head
-              (kernel 4) in eval and train mode, f32 and bf16, also against
-              kernels 1-3 composed
+              kernels 1-3, and kernels 2 and 4 (the fused coarse head) in eval
+              and train mode, f32 and bf16, kernel 4 also against kernels 1-3
+              composed, both also at the training shape (2,12,20,60) and at
+              CHECK_SHAPES; kernel 2's train mode and the train-mode cuDNN
+              yardsticks timed at the serving and training shapes
   4. serving  StereoDepthEngine at ServingConfig() defaults (bf16) with seeded
               random weights answers FRAMES requests; the launch counters
               show kernels 1-3 on the path. Then the same frames and weights
@@ -27,11 +31,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               the backward chain against autograd through tower_ref (dx0,
               dW, db, dgamma, dbeta); times beside the bound and the plain
               chain (cuDNN F.conv2d + the port's BN and LeakyReLU), whose
-              backward is timed alone as the sum of its kernels' device times
+              backward is timed alone as the sum of its kernels' device times;
+              the refinement module's device time, forward + backward,
+              forward alone and backward alone, with the kernels and on the
+              module path
   8. autograd kernels 1-3 at the training shapes (batch 2, coarse 20x60):
               their forward outputs against the plain versions, f32 and
               bf16, kernel 2 in train mode; the gradients through the
-              wrappers of kernels 1 and 3 against the plain versions'
+              wrappers of kernels 1, 3 and 4 against the plain versions'
   9. training the online adaptation step (engine/flat_stream.py) at bench.py's
               configuration, 320x960, k=4, bf16, with fused_siamese and
               fused_tower, from seeded random weights: STEPS adapt steps
@@ -74,6 +81,13 @@ PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_cuda_core": 67e12}
 AGG_BF16_ABS, AGG_BF16_REL = 0.05, 0.05   # PERFORMANCE.md:80 bf16 band
 AGG_F32_ABS = 1e-3
 DISP_ABS = 1e-5
+# Kernels 2 and 4 are also checked at the coarse shape of the adapt step,
+# (B, D, H, W) = (2, 12, 20, 60), and where their row tiles can break: a
+# tail in every dimension (W = 7 fills 7 of the 16 rows of a GEMM tile,
+# D = 3 and H = 5 put most rows at the zero padding) and a width that
+# tile_plan splits (W = 300: four row tiles of 75).
+TRAIN_COARSE = (2, 12, 20, 60)
+CHECK_SHAPES = ((2, 3, 5, 7), (1, 12, 3, 300))
 FRAMES = 8  # served frames in phase 4, by each engine
 STEPS = 20  # timed adapt steps in phase 9, after WARMUP_STEPS
 WARMUP_STEPS = 3
@@ -127,6 +141,62 @@ def fcs_band_factor(num_disp: int) -> float:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def conv_kernel_report(path) -> None:
+    """Log registers, shared memory and spills (nvcc -Xptxas -v) and the
+    HMMA count of the SASS (cuobjdump -sass) of kernels 2 and 4, which share
+    the conv body of csrc/conv3d.cuh. Fails if one spills, or if a bfloat16
+    one has no HMMA: its conv does not run on the tensor cores."""
+    import re
+    from pathlib import Path
+
+    from adaptive_stereo_tpu_torch.ops.cuda import _build
+
+    names = ("conv3d_layer_kernel", "coarse_head_kernel")
+    ptxas, current = {}, None
+    for line in _build.ptxas_report_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1) if any(n in m.group(1) for n in names) else None
+            if current:
+                ptxas[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            ptxas[current]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ptxas[current]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            ptxas[current]["static_smem"] = int(m.group(1)) if m else 0
+    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+                           str(path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hmma, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            hmma[current] = 0
+        elif current is not None and "HMMA" in line:
+            hmma[current] += 1
+    if len(ptxas) != 6:
+        raise AssertionError(f"expected 6 conv kernel instances in the ptxas report: {ptxas}")
+    failed = []
+    for name, info in sorted(ptxas.items()):
+        count = hmma.get(name, 0)
+        log(f"[build] {name}: {info.get('registers')} registers, {info.get('static_smem')} "
+            f"bytes static smem (+ the dynamic staging of tile_plan), spill "
+            f"{info.get('spill')} bytes, HMMA {count}")
+        if info.get("spill") != 0:
+            failed.append(f"{name} spills")
+        if "bfloat16" in name and count == 0:
+            failed.append(f"{name} has no HMMA")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def nvidia_smi() -> str:
@@ -286,19 +356,81 @@ def kernel_row(name, source, replaces, wrapper, per_frame, max_abs_err, kernel_f
                 bound_ms=b_ms, bound_by=b_by, library_ms=None if lib is None else lib.ms)
 
 
-def library_aggregation(cost, params, run_stats, eps=1e-5):
+def library_aggregation(cost, params, run_stats, train=False, eps=1e-5):
     """cuDNN yardstick: F.conv3d + F.batch_norm + F.leaky_relu per layer on
-    NCDHW, timed here only; the port never calls it."""
+    NCDHW (train: batch statistics, no running update), timed here only;
+    the port never calls it."""
     dt = cost.dtype
     x = cost.permute(0, 4, 1, 2, 3)
     for i in range(4):
         w = params["kernels"][i].permute(4, 3, 0, 1, 2).to(dt)
         x = F.conv3d(x, w, params["biases"][i].to(dt), padding=1)
-        x = F.batch_norm(x, run_stats[0][i], run_stats[1][i], params["scales"][i],
-                         params["bn_biases"][i], False, 0.0, eps)
+        stats = (None, None) if train else (run_stats[0][i], run_stats[1][i])
+        x = F.batch_norm(x, *stats, params["scales"][i], params["bn_biases"][i], train, 0.0,
+                         eps)
         x = F.leaky_relu(x, 0.2)
     w = params["final_kernel"].permute(4, 3, 0, 1, 2).to(dt)
     return F.conv3d(x, w, params["final_bias"].to(dt), padding=1)[:, 0]
+
+
+def check_aggregation(cost, params, run_stats, train):
+    """Kernel 2 against its plain version on one cost volume: out (and in
+    train mode mu/var) within the aggregation band of its dtype. Returns the
+    max abs error of out."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (aggregate_cost_volume_cuda,
+                                                    aggregate_cost_volume_ref)
+
+    dt = cost.dtype
+    got = aggregate_cost_volume_cuda(cost, params, run_stats, train=train)
+    want = aggregate_cost_volume_ref(cost, params, run_stats, train=train)
+    torch.cuda.synchronize()
+    names = ("out", "mu", "var") if train else ("out",)
+    checked = [(n, *agg_band_err(g, r, dt)) for n, g, r in zip(names, got, want)]
+    log(f"[kernels] aggregation {'train' if train else 'eval'} {tuple(cost.shape)} {dt}: max "
+        "abs err " + ", ".join(f"{n} {e:.3g}" for n, e, _ in checked)
+        + f" (|ref| max {want[0].float().abs().max().item():.3g})")
+    if not all(ok for _, _, ok in checked):
+        raise AssertionError(f"aggregation train={train} {tuple(cost.shape)} {dt}: outside "
+                             f"tolerance, {checked}")
+    return checked[0][1]
+
+
+def check_head(fl, fr, params, run_stats, train, num_disp, k):
+    """Kernel 4 on one pair of feature maps. Against the plain version:
+    disparity (coarse pixels) within DISP0_ABS_PX / 2^k + DISP0_REL |ref|,
+    FCS within fcs_band_factor x the aggregation band, mu/var within the
+    aggregation band. Against kernels 1-3 composed: disparity and FCS within
+    DISP_ABS, mu/var equal (the same arithmetic over the same row tiles).
+    Returns the larger max abs error of disparity and FCS against plain."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (
+        aggregate_cost_volume_cuda, coarse_head_cuda, coarse_head_ref,
+        difference_cost_volume_cuda, soft_argmin_fcs_cuda)
+
+    dt = fl.dtype
+    got = coarse_head_cuda(fl, fr, params, run_stats, train, num_disp)
+    want = coarse_head_ref(fl, fr, params, run_stats, train, num_disp)
+    agg, mu, var = aggregate_cost_volume_cuda(
+        difference_cost_volume_cuda(fl, fr, num_disp), params, run_stats, train)
+    comp = (*soft_argmin_fcs_cuda(agg.float()), mu, var)
+    torch.cuda.synchronize()
+    d_diff = (got[0] - want[0]).abs()
+    d_ok = bool((d_diff <= DISP0_ABS_PX / 2 ** k + DISP0_REL * want[0].abs()).all())
+    f_err, f_ok = agg_band_err(got[1], want[1], dt, fcs_band_factor(num_disp))
+    stats = [agg_band_err(g, r, dt) for g, r in zip(got[2:], want[2:])]
+    comp_err = max((got[i] - comp[i]).abs().max().item() for i in (0, 1))
+    comp_stats = all(torch.equal(got[i], comp[i]) for i in (2, 3))
+    mode = "train" if train else "eval"
+    label = f"{mode} features {tuple(fl.shape)} D={num_disp} {dt}"
+    log(f"[kernels] coarse_head {label}: vs plain disp {d_diff.max().item():.3g} "
+        f"(|ref| max {want[0].abs().max().item():.3g}), fcs {f_err:.3g} "
+        f"(|ref| max {want[1].abs().max().item():.3g}), mu {stats[0][0]:.3g}, "
+        f"var {stats[1][0]:.3g}; vs kernels 1-3 disp/fcs {comp_err:.3g}, "
+        f"mu/var equal {comp_stats}")
+    if not (d_ok and f_ok and all(ok for _, ok in stats)):
+        raise AssertionError(f"coarse head {label}: outside tolerance of plain")
+    if comp_err > DISP_ABS or not comp_stats:
+        raise AssertionError(f"coarse head {label}: disagrees with kernels 1-3")
+    return max(d_diff.max().item(), f_err)
 
 
 def agg_band_err(got, want, dt, factor=1.0):
@@ -555,13 +687,20 @@ def tower_phase(model_cpu, dev, seed, rows):
     # backward in train mode, its module path (cuDNN, fused_tower=False)
     # against fused_tower=True, as the sum of device times.
     coarse_disp = torch.rand(b, h // 16, w // 16, generator=g, device=dev) * 4
-    refine_ms = {}
+    refine_ms, refine_fwd, refine_bwd = {}, {}, {}
     for fused in (True, False):
         mod = copy.deepcopy(ref).to(dev).train()
         mod.dtype, mod.fused_tower = dt, fused
         mod_params = list(mod.parameters())
         refine_ms[fused] = device_ms(lambda mod=mod, ps=mod_params: torch.autograd.grad(
             (mod(coarse_disp, x0[..., 1:]) * g_out).sum(), ps, allow_unused=True))
+        # Forward alone, and backward alone over a graph built beforehand.
+        with torch.no_grad():
+            refine_fwd[fused] = device_ms(lambda mod=mod: mod(coarse_disp, x0[..., 1:]))
+        loss_mod = (mod(coarse_disp, x0[..., 1:]) * g_out).sum()
+        refine_bwd[fused] = device_ms(lambda loss=loss_mod, ps=mod_params: torch.autograd.grad(
+            loss, ps, retain_graph=True, allow_unused=True))
+        del loss_mod
     flops = tower_flops(b, h, w)
     n_pix = b * h * w
     act_bytes = n_pix * 2  # one bf16 channel
@@ -576,7 +715,10 @@ def tower_phase(model_cpu, dev, seed, rows):
         f"GFLOP backward")
     log(f"[tower] refinement module (2,{h},{w}) bf16 train, forward + backward, device sum: "
         f"fused_tower=True {refine_ms[True]:.4f} ms, module path (cuDNN, the step's "
-        f"yardstick) {refine_ms[False]:.4f} ms")
+        f"yardstick) {refine_ms[False]:.4f} ms; forward alone: fused_tower=True "
+        f"{refine_fwd[True]:.4f} ms, module path {refine_fwd[False]:.4f} ms; backward alone "
+        f"(autograd.grad, graph built beforehand): fused_tower=True {refine_bwd[True]:.4f} ms, "
+        f"module path {refine_bwd[False]:.4f} ms")
     for name, replaces, t, plain_ms, nbytes, ops, err, wrapper in (
             ("tower_forward", "tower.py:285", t_fwd, t_plain.ms, fwd_bytes, flops,
              errs["fwd"], tower_forward_cuda),
@@ -600,10 +742,15 @@ def autograd_phase(params, run_stats, dev, seed):
     band, soft-argmin + FCS within DISP_ABS. Then the gradients of kernels 1
     and 3 through the wrappers against those through the plain versions.
     Kernel 2's gradient is not compared here: its backward recomputes
-    through the plain version, so both sides would run the same code."""
+    through the plain version, so both sides would run the same code.
+    Kernel 4's backward recomputes too, through coarse_head_ref; its check
+    (eval and train) holds the Function's wiring: the saved inputs, which
+    inputs get a gradient, the float32 incoming gradient."""
     from adaptive_stereo_tpu_torch.ops.cuda import (
-        aggregate_cost_volume_cuda, aggregate_cost_volume_ref, difference_cost_volume_cuda,
-        difference_cost_volume_ref, soft_argmin_fcs_cuda, soft_argmin_fcs_ref)
+        aggregate_cost_volume_cuda, aggregate_cost_volume_ref, coarse_head_cuda,
+        coarse_head_ref, difference_cost_volume_cuda, difference_cost_volume_ref,
+        soft_argmin_fcs_cuda, soft_argmin_fcs_ref)
+    from adaptive_stereo_tpu_torch.ops.cuda.aggregation import PARAM_NAMES
 
     b, d, h, w, c = 2, 12, 20, 60, 32
     g = torch.Generator(device=dev).manual_seed(seed + 8)
@@ -657,6 +804,23 @@ def autograd_phase(params, run_stats, dev, seed):
         f"uses the kernel's disparity)")
     if cv_err > 1e-5 or sa_err > 1e-5 * (1 + sa_scale):
         raise AssertionError("kernel 1 or 3: gradients through the wrapper disagree")
+
+    for train in (False, True):
+        def head(fn):
+            return lambda fl, fr, *ps: fn(fl, fr, dict(zip(PARAM_NAMES, ps)), run_stats, train,
+                                          d)[0]
+
+        gk, gp = both(head(coarse_head_cuda), head(coarse_head_ref),
+                      [rn(b, h, w, c), rn(b, h, w, c)] + [params[n] for n in PARAM_NAMES],
+                      rn(b, h, w))
+        scale = max(t.abs().max().item() for t in gp)
+        err = max((a - r).abs().max().item() for a, r in zip(gk, gp))
+        log(f"[autograd] gradients f32, coarse head {'train' if train else 'eval'}: max abs "
+            f"diff {err:.3g} over f_l, f_r and the six params (|grad| max {scale:.3g}; the "
+            f"backward recomputes through coarse_head_ref: this checks its wiring)")
+        if err > 1e-5 * (1 + scale):
+            raise AssertionError(f"kernel 4 train={train}: gradients through the wrapper "
+                                 "disagree")
 
 
 @contextlib.contextmanager
@@ -878,7 +1042,7 @@ def training_phase(seed, dev, rows):
 
     log("[profile] training, fused_tower=True")
     adapt = make_flat_streaming_steps(model, s, k, **options)[0]
-    profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=15, unit="step", host_top=10)
+    profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=24, unit="step", host_top=10)
     log("[profile] training, fused_tower=False (yardstick)")
     m_y, ss_y, _ = results[False]
     adapt_y = make_flat_streaming_steps(m_y, s, k, **options)[0]
@@ -922,6 +1086,7 @@ def main() -> int:
     path = _build.build(verbose=True)
     _build.library()
     log(f"[build] {path.name} built and loaded in {time.perf_counter() - t0:.1f} s")
+    conv_kernel_report(path)
 
     # Phase 3: kernels against their plain versions at the serving shapes.
     cfg = ServingConfig()
@@ -961,29 +1126,26 @@ def main() -> int:
             2 * fl.numel() * 2 + num_disp * fl.numel() * 2, n_sub, "f32_cuda_core",
             f"(1,{num_disp},{h},{w},{c}) bf16, bitwise equal in f32 and bf16"))
 
-        # Aggregation, eval and train mode: bf16 within 0.05 + 0.05|ref|; f32
-        # within 1e-3; train-mode mu/var (means of the conv outputs) within
-        # the same bands.
-        for train in (False, True):
-            for dt in (torch.float32, torch.bfloat16):
-                cost = randn(1, num_disp, h, w, c, dtype=dt)
-                got = aggregate_cost_volume_cuda(cost, params, run_stats, train=train)
-                want = aggregate_cost_volume_ref(cost, params, run_stats, train=train)
-                torch.cuda.synchronize()
-                names = ("out", "mu", "var") if train else ("out",)
-                checked = [(n, *agg_band_err(g, r, dt)) for n, g, r in zip(names, got, want)]
-                errs[dt] = checked[0][1]
-                log(f"[kernels] aggregation {'train' if train else 'eval'} {dt}: max abs err "
-                    + ", ".join(f"{n} {e:.3g}" for n, e, _ in checked)
-                    + f" (|ref| max {want[0].float().abs().max().item():.3g})")
-                if not all(ok for _, _, ok in checked):
-                    raise AssertionError(f"aggregation train={train} {dt}: outside tolerance, "
-                                         f"{checked}")
-            if not train:
-                agg_err = errs[torch.bfloat16]
-        agg_train = time_ms(lambda: aggregate_cost_volume_cuda(cost, params, run_stats, True))
-        log(f"[kernels] aggregate_cost_volume train mode (1,{num_disp},{h},{w},{c}) bf16, "
-            f"13 launches: kernel {agg_train}")
+        # Aggregation, eval and train mode, f32 and bf16, against the plain
+        # version at the serving and training shapes and at CHECK_SHAPES.
+        agg_err = None
+        for shape in [(1, num_disp, h, w), TRAIN_COARSE, *CHECK_SHAPES]:
+            for train in (False, True):
+                for dt in (torch.float32, torch.bfloat16):
+                    err = check_aggregation(randn(*shape, c, dtype=dt), params, run_stats, train)
+                    if agg_err is None and dt == torch.bfloat16:
+                        agg_err = err  # the serving shape, eval
+        cost = randn(1, num_disp, h, w, c, dtype=torch.bfloat16)
+        cost_t = randn(*TRAIN_COARSE, c, dtype=torch.bfloat16)
+        train_times = {name: [time_ms(lambda x=x: fn(x, params, run_stats, True))
+                              for x in (cost, cost_t)]
+                       for name, fn in (("kernel", aggregate_cost_volume_cuda),
+                                        ("cuDNN", library_aggregation))}
+        log(f"[kernels] aggregate_cost_volume train mode bf16 (13 launches) against its "
+            f"yardstick, cuDNN conv3d + F.batch_norm(training=True) + LeakyReLU: at "
+            f"(1,{num_disp},{h},{w},{c}) kernel {train_times['kernel'][0]}, cuDNN "
+            f"{train_times['cuDNN'][0]}; at the training shape {TRAIN_COARSE + (c,)} kernel "
+            f"{train_times['kernel'][1]}, cuDNN {train_times['cuDNN'][1]}")
         lib_err = (library_aggregation(cost, params, run_stats).float()
                    - aggregate_cost_volume_ref(cost, params, run_stats, False)[0].float()
                    ).abs().max().item()
@@ -1014,49 +1176,29 @@ def main() -> int:
             scost.numel() * 4 + 2 * h * w * 4, 8 * scost.numel(), "f32_cuda_core",
             f"(1,{num_disp},{h},{w}) f32, max abs err {err:.3g}"))
 
-        # Fused coarse head, eval and train, f32 and bf16. Against the plain
-        # version: disparity (coarse pixels) within DISP0_ABS_PX / 2^k +
-        # DISP0_REL |ref|, FCS within fcs_band_factor x the aggregation band,
-        # mu/var within the aggregation band. Against kernels 1-3 composed:
-        # disparity and FCS within DISP_ABS, mu/var equal (the same
-        # arithmetic over the same tiles).
-        head_err = 0.0
-        for dt in (torch.float32, torch.bfloat16):
-            fl, fr = randn(1, h, w, c, dtype=dt), randn(1, h, w, c, dtype=dt)
-            for train in (False, True):
-                got = coarse_head_cuda(fl, fr, params, run_stats, train, num_disp)
-                want = coarse_head_ref(fl, fr, params, run_stats, train, num_disp)
-                agg, mu, var = aggregate_cost_volume_cuda(
-                    difference_cost_volume_cuda(fl, fr, num_disp), params, run_stats, train)
-                comp = (*soft_argmin_fcs_cuda(agg.float()), mu, var)
-                torch.cuda.synchronize()
-                d_diff = (got[0] - want[0]).abs()
-                d_ok = bool((d_diff <= DISP0_ABS_PX / 2 ** k + DISP0_REL * want[0].abs()).all())
-                f_err, f_ok = agg_band_err(got[1], want[1], dt, fcs_band_factor(num_disp))
-                stats = [agg_band_err(g, r, dt) for g, r in zip(got[2:], want[2:])]
-                comp_err = max((got[i] - comp[i]).abs().max().item() for i in (0, 1))
-                comp_stats = all(torch.equal(got[i], comp[i]) for i in (2, 3))
-                mode = "train" if train else "eval"
-                log(f"[kernels] coarse_head {mode} {dt}: vs plain disp {d_diff.max().item():.3g} "
-                    f"(|ref| max {want[0].abs().max().item():.3g}), fcs {f_err:.3g} "
-                    f"(|ref| max {want[1].abs().max().item():.3g}), mu {stats[0][0]:.3g}, "
-                    f"var {stats[1][0]:.3g}; vs kernels 1-3 disp/fcs {comp_err:.3g}, "
-                    f"mu/var equal {comp_stats}")
-                if not (d_ok and f_ok and all(ok for _, ok in stats)):
-                    raise AssertionError(f"coarse head {mode} {dt}: outside tolerance of plain")
-                if comp_err > DISP_ABS or not comp_stats:
-                    raise AssertionError(f"coarse head {mode} {dt}: disagrees with kernels 1-3")
-                if dt == torch.bfloat16 and not train:
-                    head_err = max(d_diff.max().item(), f_err)
+        # Fused coarse head, eval and train, f32 and bf16, against the plain
+        # version and against kernels 1-3 composed, at the serving and
+        # training shapes and at CHECK_SHAPES (features (B, H, W), D).
+        head_err = None
+        for hb, hd, hh, hw in [(1, num_disp, h, w), TRAIN_COARSE, *CHECK_SHAPES]:
+            for dt in (torch.float32, torch.bfloat16):
+                fl, fr = randn(hb, hh, hw, c, dtype=dt), randn(hb, hh, hw, c, dtype=dt)
+                for train in (False, True):
+                    err = check_head(fl, fr, params, run_stats, train, hd, k)
+                    if head_err is None and dt == torch.bfloat16:
+                        head_err = err  # the serving shape, eval
+        fl, fr = randn(1, h, w, c, dtype=torch.bfloat16), randn(1, h, w, c, dtype=torch.bfloat16)
         head_train = time_ms(lambda: coarse_head_cuda(fl, fr, params, run_stats, True,
                                                       num_disp))
         composed = time_ms(lambda: soft_argmin_fcs_cuda(aggregate_cost_volume_cuda(
             difference_cost_volume_cuda(fl, fr, num_disp), params, run_stats, False)[0].float()))
-        cudnn = time_ms(lambda: library_aggregation(
-            difference_cost_volume_cuda(fl, fr, num_disp), params, run_stats))
+        cudnn = [time_ms(lambda t=t: library_aggregation(
+            difference_cost_volume_cuda(fl, fr, num_disp), params, run_stats, t))
+            for t in (False, True)]
         log(f"[kernels] coarse_head yardsticks (no single PyTorch call computes the head): "
-            f"kernels 1-3 composed {composed}; cost-volume kernel + cuDNN stack {cudnn}; "
-            f"fused head in train mode {head_train}")
+            f"kernels 1-3 composed {composed}; cost-volume kernel + cuDNN stack {cudnn[0]}; "
+            f"fused head in train mode {head_train}, its yardstick the cost-volume kernel + "
+            f"cuDNN conv3d + F.batch_norm(training=True) + LeakyReLU {cudnn[1]}")
         rows.append(kernel_row(
             "coarse_head", "coarse_head.cu", "coarse_head.py:225", coarse_head_cuda, 1,
             head_err,

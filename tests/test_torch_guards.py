@@ -3,6 +3,7 @@ points pick, and that nothing is built or loaded at import."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -100,8 +101,24 @@ def test_library_name_follows_the_sources():
     names = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu", "coarse_head.cu",
                      "tower.cu"}
+    headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
+    assert headers == {"common.cuh", "bn_stats.cuh", "conv3d.cuh", "soft_argmin_fcs.cuh"}
     ignored = (REPO / ".gitignore").read_text().split()
     assert "adaptive_stereo_tpu_torch/_build/" in ignored
+
+
+def test_library_name_follows_the_headers(monkeypatch, tmp_path):
+    """A change to a shared header (the conv body of kernels 2 and 4 lives
+    in csrc/conv3d.cuh) renames the library, so a stale build is never
+    loaded; the -Xptxas -v report is named after the library beside it."""
+    src = tmp_path / "csrc"
+    shutil.copytree(PORT / "csrc", src)
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    before = _build.library_path()
+    (src / "conv3d.cuh").write_text((src / "conv3d.cuh").read_text() + "\n// edited\n")
+    after = _build.library_path()
+    assert after != before and after.parent == before.parent
+    assert _build.ptxas_report_path() == after.parent / (after.stem + ".ptxas.txt")
 
 
 def test_every_c_entry_point_has_argtypes():

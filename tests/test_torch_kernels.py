@@ -15,13 +15,20 @@ coarse head: disparity and FCS within the aggregation band (they are
 functions of the aggregated cost), batch mu/var 1e-4 relative + 1e-5
 absolute (float32 means over B*D*H*W in different orders).
 
-Backward of kernels 1-3: on the card each wrapper is a
+Backward of kernels 1-4: on the card each wrapper is a
 torch.autograd.Function whose backward is plain PyTorch. These tests drive
 those Functions on the CPU, with the kernel launch replaced by the plain
 forward, and hold the gradients against jax.vjp of the Pallas functions:
 the cost volume bitwise (sums of the same float32 terms in the same order),
-soft-argmin 1e-5 absolute and relative, aggregation the aggregation band.
+soft-argmin 1e-5 absolute and relative, aggregation and the fused coarse
+head the aggregation band.
+
+The row tiles of kernels 2 and 4 (aggregation.tile_plan) are checked here
+too, and what the wrappers hand the C entry points, through a stand-in for
+the kernel library that records the calls.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +43,9 @@ from adaptive_stereo_tpu.ops.pallas import (
     difference_cost_volume_pallas,
     soft_argmin_fcs_pallas,
 )
+from adaptive_stereo_tpu_torch.ops.cuda import _build
 from adaptive_stereo_tpu_torch.ops.cuda import aggregation as agg_mod
+from adaptive_stereo_tpu_torch.ops.cuda import coarse_head as head_mod
 from adaptive_stereo_tpu_torch.ops.cuda import cost_volume as cv_mod
 from adaptive_stereo_tpu_torch.ops.cuda import disparity as disp_mod
 from adaptive_stereo_tpu_torch.ops.cuda import (
@@ -51,6 +60,15 @@ from adaptive_stereo_tpu_torch.ops.cuda import (
 DISP_TOL = dict(rtol=1e-5, atol=1e-5)
 AGG_TOL = dict(rtol=1e-4, atol=1e-4)
 STATS_TOL = dict(rtol=1e-4, atol=1e-5)
+# The fused coarse head's gradient, per tensor, in relative L2 (the band of
+# tests/test_torch_train.py): on (2, 5, 4, 8) a layer-3 pre-activation is
+# 1e-6, which float32 rounding (7e-6 here) puts on either side of the
+# LeakyReLU, and in train mode the flip moves every gradient below it
+# through the batch statistics, by up to 3 % of the largest entry (relative
+# L2 at most 7.3e-3; in eval mode 9e-6). A wrong term moves them by O(1).
+HEAD_GRAD_REL_L2 = 2e-2
+# Shared memory one block of an H100 can have.
+SMEM_PER_BLOCK = 232_448
 
 
 def _agg_inputs(rng, b, d, h, w, scale=0.1):
@@ -254,3 +272,173 @@ def test_aggregation_backward_matches_pallas_vjp(monkeypatch, train):
     for name in agg_mod.PARAM_NAMES:
         np.testing.assert_allclose(tp[name].grad.numpy(), np.asarray(g_params[name]),
                                    err_msg=name, **AGG_TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_coarse_head_backward_matches_pallas_vjp(monkeypatch, train):
+    """Kernel 4's gradient through the disparity, as JAX's custom VJP gives
+    it; FCS, mu and var carry none, nor do the running statistics."""
+    b, d, h, w = 2, 5, 4, 8
+    rng = np.random.RandomState(31)
+    _, params, stats = _agg_inputs(rng, 1, 1, 1, 1)
+    fl, fr = (rng.randn(b, h, w, 32).astype(np.float32) for _ in range(2))
+    g = rng.randn(b, h, w).astype(np.float32)
+    jstats = tuple(map(jnp.asarray, stats))
+    _, vjp = jax.vjp(lambda x, y, p: coarse_head_pallas(x, y, p, jstats, d, train,
+                                                        interpret=True)[0],
+                     jnp.asarray(fl), jnp.asarray(fr), _jax(params))
+    g_fl, g_fr, g_params = vjp(jnp.asarray(g))
+
+    def launch(f_l, f_r, p, run_stats, tr, num_disp, eps):
+        return tuple(t.detach() for t in head_mod.coarse_head_ref(f_l, f_r, p, run_stats, tr,
+                                                                  num_disp, eps))
+
+    monkeypatch.setattr(head_mod, "_launch", launch)
+    tl, tr_ = (torch.from_numpy(x).requires_grad_() for x in (fl, fr))
+    tp = {k: v.requires_grad_() for k, v in _torch(params).items()}
+    rmean, rvar = (torch.from_numpy(v).requires_grad_() for v in stats)
+    disp, fcs, mu, var = head_mod._CoarseHead.apply(tl, tr_, rmean, rvar, train, d, 1e-5,
+                                                    *(tp[n] for n in agg_mod.PARAM_NAMES))
+    assert not (fcs.requires_grad or mu.requires_grad or var.requires_grad)
+    disp.backward(torch.from_numpy(g))
+    assert rmean.grad is None and rvar.grad is None
+    got = {"f_l": tl.grad, "f_r": tr_.grad, **{n: tp[n].grad for n in agg_mod.PARAM_NAMES}}
+    want = {"f_l": g_fl, "f_r": g_fr, **g_params}
+    gmax = max(np.abs(np.asarray(v)).max() for v in want.values())
+    # Exactly 0: soft-argmin ignores a shift of the whole cost (final_bias),
+    # and a train-mode BatchNorm removes the conv bias before it.
+    zero = {"final_bias"} | ({"biases"} if train else set())
+    for name, a in got.items():
+        a, r = a.numpy(), np.asarray(want[name])
+        if name in zero:
+            assert max(np.abs(a).max(), np.abs(r).max()) <= 1e-5 * gmax, name
+            continue
+        assert np.linalg.norm(a - r) <= HEAD_GRAD_REL_L2 * np.linalg.norm(r), name
+
+
+def _tiles(plan, w):
+    """(w0, wn) of the row tiles of one (b, d, h) row, as csrc/conv3d.cuh
+    cuts it (row_tile)."""
+    return [(j * plan.wc, min(plan.wc, w - j * plan.wc)) for j in range(plan.tiles_per_row)]
+
+
+def _check_plan(b, d, h, w):
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = agg_mod.tile_plan(b, d, h, w, dtype)
+        assert 1 <= plan.wc <= agg_mod.TILE_MAX_W, (w, plan)
+        covered = [x for w0, wn in _tiles(plan, w) for x in range(w0, w0 + wn)]
+        assert covered == list(range(w)), (w, plan)  # every w once, no empty tile
+        assert plan.nparts == b * d * h * plan.tiles_per_row
+        assert 0 <= plan.smem <= SMEM_PER_BLOCK
+        if dtype == torch.bfloat16:  # halo + weights, two blocks on an SM
+            mt = -(-plan.wc // 16) * 16
+            assert plan.smem == 9 * (mt + 2) * 64 + 27 * 32 * 32 * 2 <= 113 * 1024
+        else:
+            assert plan.smem == 0
+
+
+def test_tile_plan_covers_every_width():
+    for w in range(1, 1025):
+        _check_plan(1, 1, 1, w)
+    assert agg_mod.tile_plan(1, 12, 20, 76).wc == 76
+    assert agg_mod.tile_plan(1, 12, 3, 300)[:2] == (75, 4)
+
+
+@pytest.mark.parametrize("b,d,h,w,tiles", [
+    (1, 12, 20, 76, 240),    # serving, k=4 (320x1216)
+    (2, 12, 20, 60, 480),    # the adapt step, k=4 (320x960, batch 2)
+    (1, 24, 40, 152, 1920),  # serving, k=3: W = 152 in two tiles of 76
+    (1, 12, 8, 16, 96), (2, 5, 6, 12, 60), (2, 6, 4, 8, 48), (2, 5, 3, 8, 30),  # tests
+    (2, 3, 5, 7, 30), (1, 12, 3, 300, 144),  # the chip check's tail and split shapes
+])
+def test_tile_plan_at_the_ports_shapes(b, d, h, w, tiles):
+    _check_plan(b, d, h, w)
+    assert agg_mod.tile_plan(b, d, h, w).nparts == tiles
+
+
+class _FakeLibrary:
+    """Records the C entry points' arguments, returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """Run a wrapper's launch code on CPU tensors against _FakeLibrary, and
+    record the partial-sum scratch each launch allocates."""
+    lib = _FakeLibrary()
+    partials = []
+    make = agg_mod._partials
+
+    def recording(plan, device):
+        partials.append(make(plan, device))
+        return partials[-1]
+
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(agg_mod, "_partials", recording)
+    monkeypatch.setattr(head_mod, "_partials", recording)
+    return lib, partials
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("b,d,h,w", [(2, 3, 5, 7), (1, 12, 3, 300)])
+def test_aggregation_hands_the_kernel_its_tile_plan(fake_library, b, d, h, w, train, dtype):
+    lib, partials = fake_library
+    cost, params, stats = _agg_inputs(np.random.RandomState(5), b, d, h, w)
+    plan = agg_mod.tile_plan(b, d, h, w, dtype)
+    before = aggregate_cost_volume_cuda.launches
+    agg_mod._launch(torch.from_numpy(cost).to(dtype), _torch(params),
+                    tuple(map(torch.from_numpy, stats)), train, 1e-5)
+    names = [name for name, _ in lib.calls]
+    assert aggregate_cost_volume_cuda.launches - before == len(names) == (13 if train else 5)
+    for name, args in lib.calls:
+        if name == "stereo_conv3d_bn_leaky_forward":
+            assert args[8:12] == (b, d, h, w) and args[14:16] == (plan.wc, plan.smem)
+        elif name == "stereo_conv3d_stats_forward":
+            assert args[5:10] == (plan.nparts, b, d, h, w)
+            assert args[10:12] == (plan.wc, plan.smem)
+            assert args[4] == partials[0].data_ptr()
+        elif name == "stereo_bn_stats_finalize":
+            assert args[1:4] == (plan.nparts, 32, b * d * h * w)
+    assert len(partials) == int(train)
+    if train:
+        assert tuple(partials[0].shape) == (plan.nparts, 2, 32)
+        assert plan.nparts == b * d * h * len(_tiles(plan, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,h,w", [(1, 12, 20, 76), (2, 3, 5, 7), (1, 12, 3, 300)])
+def test_coarse_head_hands_the_kernel_its_tile_plan(fake_library, b, d, h, w, dtype):
+    lib, partials = fake_library
+    _, params, stats = _agg_inputs(np.random.RandomState(6), 1, 1, 1, 1)
+    f = torch.zeros(b, h, w, 32, dtype=dtype)
+    plan = agg_mod.tile_plan(b, d, h, w, dtype)
+    head_mod._launch(f, f, _torch(params), tuple(map(torch.from_numpy, stats)), True, d, 1e-5)
+    (name, args), = lib.calls
+    assert name == "stereo_coarse_head_forward"
+    assert args[17] == partials[0].data_ptr() and args[18] == plan.nparts
+    assert args[19:27] == (b, h, w, 32, d, plan.wc, plan.smem, 1)
+    assert tuple(partials[0].shape) == (plan.nparts, 2, 32)
+    assert plan.nparts == b * d * h * len(_tiles(plan, w))
+
+
+def test_aggregation_refuses_a_cost_off_a_16_byte_boundary(fake_library):
+    """The kernel stages the cost in 16-byte chunks: a view that starts
+    between them is refused before anything launches."""
+    lib, _ = fake_library
+    cost, params, stats = _agg_inputs(np.random.RandomState(7), 1, 3, 2, 4)
+    flat = torch.from_numpy(np.concatenate([[0.0], cost.ravel()]).astype(np.float32))
+    shifted = flat[1:].view(cost.shape)
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        agg_mod._launch(shifted, _torch(params), tuple(map(torch.from_numpy, stats)), False,
+                        1e-5)
+    assert lib.calls == []
