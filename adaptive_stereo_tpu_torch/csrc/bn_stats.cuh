@@ -1,6 +1,7 @@
 // Train-mode BatchNorm statistics across thread blocks, deterministic:
-// shared by csrc/aggregation.cu (kernel 2), csrc/coarse_head.cu (kernel 4)
-// and csrc/tower.cu (kernel 5).
+// shared by csrc/aggregation.cu (kernel 2) and csrc/coarse_head.cu (kernel
+// 4). The tower (csrc/tower.cu) reduces its per-tile rows by the same rule
+// with a wider block (tower_stats_kernel).
 //
 // The statistics of channel c are over every (b, d, h, w) position of a
 // (B, D, H, W, C) activation, in f32 semantics with the fast variance:
@@ -14,41 +15,15 @@
 //      scratch array partials[tile][2][C] that the wrapper allocates;
 //   2. bn_finalize: one block of STEREO_BN_TILE threads sums the rows in a
 //      fixed order (in double) and writes mu and var.
-// Between the two, every row must be written: a launch boundary (kernels 2
-// and 5) or a grid-wide barrier (kernel 4).
-//
-// The tower's tiles are STEREO_BN_TILE consecutive elements, one element
-// per thread of a block of STEREO_BN_TILE threads, so thread t holds
-// channel t % C (C divides the tile): bn_block_partials. Kernels 2 and 4
-// use the row tiles of conv3d.cuh (tile_partials there). Kernels that cut
-// the volume into the same tiles get the same rows, and so the same mu and
-// var, whatever their grid.
+// Between the two, every row must be written: a launch boundary (kernel 2)
+// or a grid-wide barrier (kernel 4). Kernels 2 and 4 use the row tiles of
+// conv3d.cuh (tile_partials there), so they get the same rows, and so the
+// same mu and var, whatever their grid.
 #pragma once
 
 #include "common.cuh"
 
 #define STEREO_BN_TILE 256
-
-// Write this block's per-channel sums (s1 = y, s2 = y^2 of the calling
-// thread's element of the tile) to row[0][c] and row[1][c]. blockDim.x must
-// be STEREO_BN_TILE; every thread of the block calls it.
-__device__ __forceinline__ void bn_block_partials(float s1, float s2, int C, float* row) {
-  __shared__ float sh[2][STEREO_BN_TILE];
-  const int t = threadIdx.x;
-  sh[0][t] = s1;
-  sh[1][t] = s2;
-  __syncthreads();
-  if (t < C) {
-    float a = 0.0f, q = 0.0f;
-    for (int j = t; j < static_cast<int>(blockDim.x); j += C) {
-      a += sh[0][j];
-      q += sh[1][j];
-    }
-    row[t] = a;
-    row[C + t] = q;
-  }
-  __syncthreads();
-}
 
 // mu[c] and var[c] for c < C from nparts rows of partials, over count
 // elements per channel. Called by every thread of one block of

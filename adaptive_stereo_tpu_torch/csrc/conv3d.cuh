@@ -23,12 +23,11 @@
 // of 32 channels, with cp.async (L2 only: the fused head reads activations
 // that other blocks wrote in the same launch) and zero-fill outside the
 // volume; the caller stages the layer's weights beside it. Rows are 64
-// bytes, four 16-byte chunks, and chunk c of row R lives at chunk
-// c ^ ((R >> 1) & 3): any 8 consecutive rows then hit 8 different bank
-// groups, so ldmatrix is free of bank conflicts without padding. Each warp
-// takes units of 16 rows x 16 output channels (mma.sync m16n8k16, bf16 ->
-// f32, two n8 tiles), unit u = warp, warp + 8, ..., and walks K in a fixed
-// order: taps in order, then the two k16 halves of ci.
+// bytes, swizzled as mma.cuh says, so ldmatrix is free of bank conflicts
+// without padding. Each warp takes units of 16 rows x 16 output channels
+// (mma.sync m16n8k16, bf16 -> f32, two n8 tiles), unit u = warp, warp + 8,
+// ..., and walks K in a fixed order: taps in order, then the two k16
+// halves of ci.
 //
 // float32: today's CUDA-core body, one output at a time in f32 fmaf, taps
 // and channels in order (conv3d_tap_sum); the tensor cores' TF32 would keep
@@ -43,6 +42,7 @@
 
 #include "bn_stats.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 #define STEREO_CONV_C 32           // channels of every activation
 #define STEREO_TILE_MAX_W 80       // most w positions of one row tile
@@ -161,46 +161,6 @@ __device__ __forceinline__ __nv_bfloat16* tile_halo(unsigned char* smem) {
 __device__ __forceinline__ __nv_bfloat16* tile_weights(unsigned char* smem, int wc) {
   return reinterpret_cast<__nv_bfloat16*>(smem + tile_halo_bytes(wc));
 }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared through L2 only; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Element offset of 16-byte chunk c (0-3) of 64-byte row R, swizzled.
-__device__ __forceinline__ int swz(int R, int c) { return R * 32 + ((c ^ ((R >> 1) & 3)) << 3); }
 
 // Stage the tile's input halo: row R = slab * rows + p holds position
 // (d + kd - 1, h + kh - 1, w0 - 1 + p), slab = kd * 3 + kh; zeros outside

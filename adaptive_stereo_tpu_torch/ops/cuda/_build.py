@@ -54,9 +54,10 @@ _SIGNATURES = {
     "stereo_soft_argmin_fcs_forward": [_P, _P, _P, _I, _I, _I, _P],
     "stereo_coarse_head_forward": [_P] * 18 + [_I] * 9 + [_F, _F, _I, _P],
     "stereo_tower_conv": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
-    "stereo_tower_grad_y": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
+    "stereo_tower_grad_y": [_P] * 9 + [_I] * 2 + [_F, _I, _P],
     "stereo_tower_wgrad": [_P] * 3 + [_I] * 8 + [_P],
-    "stereo_column_sum": [_P, _I, _I, _I, _P, _P],
+    "stereo_tower_sums": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "stereo_tower_stats": [_P, _I, _I, _P, _P, _P],
 }
 
 

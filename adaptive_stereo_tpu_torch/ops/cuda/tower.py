@@ -30,8 +30,10 @@ runs the chain through csrc/tower.cu on CUDA tensors (a
 torch.autograd.Function whose backward is the kernels' backward chain), and
 takes tower_ref for CPU tensors only. The kernels round as the TPU kernel
 does: the bias is added before the conv output is rounded, and the residual
-add before the activation is rounded. Launches are counted per chain:
-tower_forward_cuda.launches and tower_backward_cuda.launches.
+add before the activation is rounded. In bfloat16 the convs with 32 input
+channels and every weight gradient run on the tensor cores. Launches are counted per chain:
+tower_forward_cuda.launches (15 in train mode, 8 in eval mode) and
+tower_backward_cuda.launches (31).
 """
 
 from __future__ import annotations
@@ -52,12 +54,10 @@ NUM_BN = 7
 CHANNELS = 32
 IN_CHANNELS = 4
 LEAKY_SLOPE = 0.2
-# Pixel tile of csrc/tower.cu's conv kernel (TOWER_TH x TOWER_TW), the block
-# size of its elementwise kernels (STEREO_BN_TILE), and the block count of
-# its weight-gradient kernel: fixed, so the reduction order depends on the
-# shape alone.
+# Pixel tile of csrc/tower.cu's conv kernels (TOWER_TH x TOWER_TW), and the
+# block count of its weight-gradient kernels (two waves' worth of 132 SMs):
+# fixed, so the reduction order depends on the shape alone.
 TILE_H, TILE_W = 8, 16
-THREADS = 256
 WGRAD_BLOCKS = 264
 # The C entry points take element counts as int.
 _MAX_ELEMENTS = 2**31 - 1
@@ -119,6 +119,25 @@ def _bn_terms(mu, var, gamma, beta, eps):
     return inv, nrm, beta - mu * nrm
 
 
+def tile_count(b: int, h: int, w: int) -> int:
+    """The TILE_H x TILE_W pixel tiles of a (b, h, w) activation: the rows of
+    the conv kernels' per-tile channel sums."""
+    return b * -(-h // TILE_H) * -(-w // TILE_W)
+
+
+def _partials(rows: int, cols: int, device) -> torch.Tensor:
+    """Scratch for per-block or per-tile partial sums, reduced by a later
+    launch."""
+    return torch.empty((rows, cols), dtype=torch.float32, device=device)
+
+
+def transposed_taps(k: torch.Tensor) -> torch.Tensor:
+    """The weights of a layer's input gradient: the HWIO kernel (3, 3, cin,
+    cout) with its taps reversed and its channels swapped, (3, 3, cout,
+    cin), so that the input gradient is the same dilated conv of gy."""
+    return k.flip(0, 1).transpose(2, 3).contiguous()
+
+
 def tower_forward_cuda(x0: torch.Tensor, kernels: List[torch.Tensor],
                        biases: List[torch.Tensor], gammas: torch.Tensor, betas: torch.Tensor,
                        run_stats: Tuple[torch.Tensor, torch.Tensor], train: bool,
@@ -138,8 +157,8 @@ def tower_forward_cuda(x0: torch.Tensor, kernels: List[torch.Tensor],
     cdtype, dev = x0.dtype, x0.device
     dcode = _build.DTYPE_CODES[cdtype]
     count = b * h * w
-    grid_blocks = -(-w // TILE_W) * -(-h // TILE_H) * b
-    partials = torch.empty((grid_blocks, 2, CHANNELS), dtype=torch.float32, device=dev)
+    tiles = tile_count(b, h, w)
+    partials = _partials(tiles, 2 * CHANNELS, dev)
     lib = _build.library()
     xs, ys, mus, vars_ = [], [], [], []
     nrm = shift = None
@@ -149,6 +168,7 @@ def tower_forward_cuda(x0: torch.Tensor, kernels: List[torch.Tensor],
             cin, cout = _channels(p)
             k = kernels[p]
             _build.require_cuda(k, "kernel", (cdtype,), (3, 3, cin, cout))
+            _build.require_aligned(k, "kernel")
             bias = _vec(biases[p], "bias", cout)
             y = torch.empty((b, h, w, cout), dtype=cdtype, device=dev)
             x = None if p == 0 else torch.empty((b, h, w, CHANNELS), dtype=cdtype, device=dev)
@@ -170,9 +190,9 @@ def tower_forward_cuda(x0: torch.Tensor, kernels: List[torch.Tensor],
             if stats:
                 mu = torch.empty(CHANNELS, dtype=torch.float32, device=dev)
                 var = torch.empty_like(mu)
-                _build.check(lib.stereo_bn_stats_finalize(
-                    partials.data_ptr(), grid_blocks, CHANNELS, count, mu.data_ptr(),
-                    var.data_ptr(), stream), "stereo_bn_stats_finalize")
+                _build.check(lib.stereo_tower_stats(
+                    partials.data_ptr(), tiles, count, mu.data_ptr(), var.data_ptr(), stream),
+                    "stereo_tower_stats")
                 tower_forward_cuda.launches += 1
             else:
                 mu = _vec(run_stats[0][p], "running mean", CHANNELS)
@@ -188,24 +208,17 @@ def tower_forward_cuda(x0: torch.Tensor, kernels: List[torch.Tensor],
 tower_forward_cuda.launches = 0
 
 
-def _column_sum(lib, partials: torch.Tensor, nrows: int, stride: int, ncols: int,
-                stream) -> torch.Tensor:
-    out = torch.empty(ncols, dtype=torch.float32, device=partials.device)
-    _build.check(lib.stereo_column_sum(partials.data_ptr(), nrows, stride, ncols,
-                                       out.data_ptr(), stream), "stereo_column_sum")
-    tower_backward_cuda.launches += 1
-    return out
-
-
 def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Tensor],
                         ys: List[torch.Tensor], kernels: List[torch.Tensor],
                         gammas: torch.Tensor, betas: torch.Tensor, mu: torch.Tensor,
                         var: torch.Tensor, eps: float = 1e-5):
     """The backward chain through csrc/tower.cu, train mode (batch
-    statistics), layer 7 down to 0: per layer the BN backward to gy (with
-    the db sums), the weight gradient, the input gradient (with the S1/S2
-    sums for the layer below) and their column sums. Returns (dx0, dW list
-    (in x0's dtype), db list, dgamma (7, 32), dbeta (7, 32))."""
+    statistics), layer 7 down to 0. Per layer: the BN backward to gy (layers
+    0-6; layer 7's gy is g_y7), the weight and bias gradients (per-block
+    rows), the input gradient (with per-tile S1/S2 sums for the layer below)
+    and one launch that reduces all those rows: at most 4 launches a layer,
+    31 a chain. Returns (dx0, dW list (in x0's dtype), db list, dgamma (7,
+    32), dbeta (7, 32))."""
     b, h, w, _ = x0.shape
     cdtype, dev = x0.dtype, x0.device
     dcode = _build.DTYPE_CODES[cdtype]
@@ -214,9 +227,12 @@ def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Ten
     inv, nrm, shift = inv.contiguous(), nrm.contiguous(), shift.contiguous()
     mu = mu.float().contiguous()
     n_pix = b * h * w
-    wgrad_blocks = min(-(-w // TILE_W) * -(-h // TILE_H) * b, WGRAD_BLOCKS)
-    grid_blocks = -(-w // TILE_W) * -(-h // TILE_H) * b
-    s_partials = torch.empty((grid_blocks, 2, CHANNELS), dtype=torch.float32, device=dev)
+    tiles = tile_count(b, h, w)
+    wgrad_blocks = min(tiles, WGRAD_BLOCKS)
+    s_partials = _partials(tiles, 2 * CHANNELS, dev)
+    for name, ts in (("x0", [x0]), ("xs", xs), ("ys", ys), ("kernels", kernels)):
+        for t in ts:
+            _build.require_aligned(t, name)
     lib = _build.library()
     dws, dbs = [None] * NUM_LAYERS, [None] * NUM_LAYERS
     dgammas, dbetas = [None] * NUM_BN, [None] * NUM_BN
@@ -229,42 +245,32 @@ def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Ten
             cin, cout = _channels(p)
             d = DILATIONS[p]
             x_p = x0 if p == 0 else xs[p - 1]
-            n = n_pix * cout
-            nparts = -(-n // THREADS)
-            gy = torch.empty((b, h, w, cout), dtype=cdtype, device=dev)
-            gy_partials = torch.empty((nparts, 2, cout), dtype=torch.float32, device=dev)
             if p < NUM_LAYERS - 1:
                 m1, m2 = (s1 / count).contiguous(), (s2 / count).contiguous()
                 dgammas[p], dbetas[p] = s2, s1
+                gy = torch.empty((b, h, w, cout), dtype=cdtype, device=dev)
                 vecs = (mu[p], inv[p], nrm[p], shift[p], m1, m2)
-                y_ptr = ys[p].data_ptr()
+                _build.check(lib.stereo_tower_grad_y(
+                    gx_next.data_ptr(), ys[p].data_ptr(), *(v.data_ptr() for v in vecs),
+                    gy.data_ptr(), n_pix * cout, cout, LEAKY_SLOPE, dcode, stream),
+                    "stereo_tower_grad_y")
+                tower_backward_cuda.launches += 1
             else:
-                vecs, y_ptr = (None,) * 6, None
-            _build.check(lib.stereo_tower_grad_y(
-                gx_next.data_ptr(), y_ptr, *(None if v is None else v.data_ptr() for v in vecs),
-                gy.data_ptr(), gy_partials.data_ptr(), nparts, n, cout, LEAKY_SLOPE, dcode,
-                stream), "stereo_tower_grad_y")
-            tower_backward_cuda.launches += 1
-            dbs[p] = _column_sum(lib, gy_partials, nparts, 2 * cout, cout, stream)
+                gy = gx_next  # the tower's output gradient, rounded to the compute dtype
 
             entries = 9 * cin * cout
-            w_partials = torch.empty((wgrad_blocks, entries), dtype=torch.float32, device=dev)
+            w_partials = _partials(wgrad_blocks, entries + cout, dev)
             _build.check(lib.stereo_tower_wgrad(
                 x_p.data_ptr(), gy.data_ptr(), w_partials.data_ptr(), wgrad_blocks, b, h, w,
                 cin, cout, d, dcode, stream), "stereo_tower_wgrad")
             tower_backward_cuda.launches += 1
-            dws[p] = _column_sum(lib, w_partials, wgrad_blocks, entries, entries,
-                                 stream).view(3, 3, cin, cout).to(cdtype)
 
-            # Input gradient: the conv of gy with the taps reversed and the
-            # channels swapped, (3, 3, cout, cin).
-            wt = kernels[p].flip(0, 1).transpose(2, 3).contiguous()
             gx = torch.empty((b, h, w, cin), dtype=cdtype, device=dev)
             below = p >= 1
             q = p - 1
             _build.check(lib.stereo_tower_conv(
-                gy.data_ptr(), None, None, None, None, wt.data_ptr(), None, gx.data_ptr(),
-                s_partials.data_ptr() if below else None,
+                gy.data_ptr(), None, None, None, None, transposed_taps(kernels[p]).data_ptr(),
+                None, gx.data_ptr(), s_partials.data_ptr() if below else None,
                 gx_next.data_ptr() if 1 <= p <= NUM_LAYERS - 2 else None,
                 ys[q].data_ptr() if below else None,
                 *((mu[q].data_ptr(), inv[q].data_ptr(), nrm[q].data_ptr(), shift[q].data_ptr())
@@ -272,10 +278,19 @@ def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Ten
                 b, h, w, cout, cin, d, _PLAIN, _INPUT_GRAD, LEAKY_SLOPE, dcode, stream),
                 "stereo_tower_conv")
             tower_backward_cuda.launches += 1
+
+            w_sums = torch.empty(entries + cout, dtype=torch.float32, device=dev)
+            s_sums = torch.empty(2 * CHANNELS, dtype=torch.float32, device=dev) if below else None
+            _build.check(lib.stereo_tower_sums(
+                w_partials.data_ptr(), wgrad_blocks, entries + cout, w_sums.data_ptr(),
+                s_partials.data_ptr() if below else None, tiles if below else 0,
+                2 * CHANNELS if below else 0, s_sums.data_ptr() if below else None, stream),
+                "stereo_tower_sums")
+            tower_backward_cuda.launches += 1
+            dws[p] = w_sums[:entries].view(3, 3, cin, cout).to(cdtype)
+            dbs[p] = w_sums[entries:]
             if below:
-                sums = _column_sum(lib, s_partials, grid_blocks, 2 * CHANNELS, 2 * CHANNELS,
-                                   stream)
-                s1, s2 = sums[:CHANNELS], sums[CHANNELS:]
+                s1, s2 = s_sums[:CHANNELS], s_sums[CHANNELS:]
             gx_next = gx
     return gx_next, dws, dbs, torch.stack(dgammas), torch.stack(dbetas)
 

@@ -6,7 +6,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device   the card's name and power limit (nvidia-smi); fails without CUDA
   2. build    nvcc builds adaptive_stereo_tpu_torch/csrc/*.cu for sm_90a; the
               -Xptxas -v registers, shared memory and spills and the SASS
-              HMMA count of kernels 2 and 4 (no spills; HMMA in bf16)
+              HMMA count of kernels 2 and 4 and of the tower's kernels (no
+              spills; HMMA in the bf16 instances of kernels 2 and 4 and in
+              the tower's bf16 tensor-core convs and weight gradients)
   3. kernels  each kernel against its plain PyTorch version on the card at the
               serving shapes (320x1216, k=4: features (1,20,76,32), cost volume
               (1,12,20,76,32), cost (1,12,20,76)), with times by CUDA events:
@@ -26,15 +28,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. profile  device time by kernel over served frames (torch.profiler), for
               both engines
   7. tower    the refinement-tower kernels (csrc/tower.cu) at the training
-              shape (2, 320, 960): the forward chain against tower_ref
-              (output, x/y buffers, mu/var) in f32 and bf16, train and eval;
-              the backward chain against autograd through tower_ref (dx0,
-              dW, db, dgamma, dbeta); times beside the bound and the plain
-              chain (cuDNN F.conv2d + the port's BN and LeakyReLU), whose
-              backward is timed alone as the sum of its kernels' device times;
+              shape (2, 320, 960) and at TOWER_TAIL: the forward chain
+              against tower_ref (output, x/y buffers, mu/var) in f32 and
+              bf16, train and eval; the backward chain against autograd
+              through tower_ref (dx0, dW, db, dgamma, dbeta), and twice on
+              the same inputs in bf16 (bitwise equal); times beside the
+              bound and the plain chain (cuDNN F.conv2d + the port's BN and
+              LeakyReLU), whose backward is timed alone as the sum of its
+              kernels' device times; each chain's launches timed one by one;
               the refinement module's device time, forward + backward,
               forward alone and backward alone, with the kernels and on the
-              module path
+              module path (the tower rows' library yardstick)
   8. autograd kernels 1-3 at the training shapes (batch 2, coarse 20x60):
               their forward outputs against the plain versions, f32 and
               bf16, kernel 2 in train mode; the gradients through the
@@ -88,6 +92,9 @@ DISP_ABS = 1e-5
 # tile_plan splits (W = 300: four row tiles of 75).
 TRAIN_COARSE = (2, 12, 20, 60)
 CHECK_SHAPES = ((2, 3, 5, 7), (1, 12, 3, 300))
+# The tower is also checked where its 8x16 pixel tiles leave a tail in H and
+# in W (37 = 4 x 8 + 5, 53 = 3 x 16 + 5).
+TOWER_TAIL = (1, 37, 53)
 FRAMES = 8  # served frames in phase 4, by each engine
 STEPS = 20  # timed adapt steps in phase 9, after WARMUP_STEPS
 WARMUP_STEPS = 3
@@ -146,14 +153,19 @@ def log(msg: str) -> None:
 def conv_kernel_report(path) -> None:
     """Log registers, shared memory and spills (nvcc -Xptxas -v) and the
     HMMA count of the SASS (cuobjdump -sass) of kernels 2 and 4, which share
-    the conv body of csrc/conv3d.cuh. Fails if one spills, or if a bfloat16
-    one has no HMMA: its conv does not run on the tensor cores."""
+    the conv body of csrc/conv3d.cuh, and of every kernel of the tower
+    (csrc/tower.cu). Fails if one spills, if a bfloat16 instance of kernels
+    2 and 4 has no HMMA, or if one of the tower's six bf16 tensor-core
+    instances (tower_conv_mma_kernel for 32, 4 and 1 output channels,
+    tower_wgrad_mma_kernel for layers 1-6, 7 and 0) has none: its product
+    does not run on the tensor cores."""
     import re
     from pathlib import Path
 
     from adaptive_stereo_tpu_torch.ops.cuda import _build
 
-    names = ("conv3d_layer_kernel", "coarse_head_kernel")
+    conv3d = ("conv3d_layer_kernel", "coarse_head_kernel")
+    names = conv3d + ("tower_",)
     ptxas, current = {}, None
     for line in _build.ptxas_report_path().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -183,17 +195,22 @@ def conv_kernel_report(path) -> None:
             hmma[current] = 0
         elif current is not None and "HMMA" in line:
             hmma[current] += 1
-    if len(ptxas) != 6:
-        raise AssertionError(f"expected 6 conv kernel instances in the ptxas report: {ptxas}")
+    n_conv3d = sum(any(n in name for n in conv3d) for name in ptxas)
+    n_mma = sum("mma_kernel" in name for name in ptxas)
+    if n_conv3d != 6 or n_mma != 6:
+        raise AssertionError(f"expected 6 conv3d kernel instances and the tower's 6 tensor-core "
+                             f"instances in the ptxas report: {sorted(ptxas)}")
     failed = []
     for name, info in sorted(ptxas.items()):
         count = hmma.get(name, 0)
         log(f"[build] {name}: {info.get('registers')} registers, {info.get('static_smem')} "
-            f"bytes static smem (+ the dynamic staging of tile_plan), spill "
-            f"{info.get('spill')} bytes, HMMA {count}")
+            f"bytes static smem (+ dynamic staging), spill {info.get('spill')} bytes, HMMA "
+            f"{count}")
         if info.get("spill") != 0:
             failed.append(f"{name} spills")
-        if "bfloat16" in name and count == 0:
+        tensor_core = "mma_kernel" in name or (
+            "bfloat16" in name and any(n in name for n in conv3d))
+        if tensor_core and count == 0:
             failed.append(f"{name} has no HMMA")
     if failed:
         raise AssertionError("; ".join(failed))
@@ -304,6 +321,19 @@ def device_ms(fn, repeats: int = 3, warmup: int = 2) -> float:
     if total == 0:
         raise AssertionError("torch.profiler recorded no device time")
     return total / repeats / 1e3
+
+
+def launch_times(fn):
+    """[(kernel name, device us)] of one call of fn(), in launch order, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+
+    fn()
+    prof = device_profile(fn, 1)[0]
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    short = lambda n: n.split("(")[0].replace("void ", "")
+    return [(short(e.name), e.time_range.end - e.time_range.start) for e in evts]
 
 
 def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
@@ -518,11 +548,11 @@ def tower_flops(b, h, w) -> float:
 
 
 def tower_phase(model_cpu, dev, seed, rows):
-    """Phase 7: the tower kernels against tower_ref at the training shape."""
+    """Phase 7: the tower kernels against tower_ref at the training shape
+    and at TOWER_TAIL, then their times at the training shape."""
     from adaptive_stereo_tpu_torch.ops.cuda import (
         tower_backward_cuda, tower_cuda, tower_forward_cuda, tower_ref)
 
-    b, h, w = 2, 320, 960
     ref = model_cpu.stereo_net.edge_aware_refinements[0]
     convs, bns = ref.tower_layers()
     with torch.no_grad():
@@ -533,9 +563,11 @@ def tower_phase(model_cpu, dev, seed, rows):
         run_stats = (torch.stack([n.running_mean for n in bns]).to(dev),
                      torch.stack([n.running_var for n in bns]).to(dev))
     g = torch.Generator(device=dev).manual_seed(seed + 7)
-    x0 = torch.rand(b, h, w, 4, generator=g, device=dev)
-    x0[..., 0] *= 60.0  # the upsampled disparity channel, in pixels
-    g_out = torch.randn(b, h, w, 1, generator=g, device=dev)
+
+    def inputs(b, h, w):
+        x0 = torch.rand(b, h, w, 4, generator=g, device=dev)
+        x0[..., 0] *= 60.0  # the upsampled disparity channel, in pixels
+        return x0, torch.randn(b, h, w, 1, generator=g, device=dev)
 
     def params_for(dt, requires_grad=False):
         """The weights rounded to dt (the kernels' inputs), as float32 or dt."""
@@ -549,7 +581,7 @@ def tower_phase(model_cpu, dev, seed, rows):
             out[key] = vals
         return out
 
-    def grads(fn, x, params):
+    def grads(fn, x, params, g_out):
         y = fn(x, params)
         gs = torch.autograd.grad((y.float() * g_out).sum(),
                                  [x] + params["kernels"] + params["biases"]
@@ -561,98 +593,131 @@ def tower_phase(model_cpu, dev, seed, rows):
     # db of the layers followed by a BatchNorm: 0 in exact arithmetic.
     bn_bias_grads = {f"db{p}" for p in range(7)}
     errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        xd = x0.to(dt)
-        for train in (True, False):
-            mode = "train" if train else "eval"
-            with torch.no_grad():
-                p32 = params_for(dt)
-                want = tower_ref(xd.float(), p32, run_stats, train, buffers=True)
-                plain = tower_ref(xd, {**p32, "kernels": [k.to(dt) for k in p32["kernels"]]},
-                                  run_stats, train, buffers=True)
-                got = tower_forward_cuda(xd, [k.to(dt).contiguous() for k in p32["kernels"]],
-                                         p32["biases"], p32["gammas"], p32["betas"],
-                                         run_stats, train)
-            torch.cuda.synchronize()
-            y_err = (got[0].float() - plain[0].float()).abs().max().item()
-            if dt == torch.float32:
-                pairs = [("y7", got[0], want[0]), ("mu", got[1], want[1]), ("var", got[2], want[2])]
-                pairs += [(f"x{i + 1}", a, r) for i, (a, r) in enumerate(zip(got[3], want[3]))]
-                pairs += [(f"y{i}", a, r) for i, (a, r) in enumerate(zip(got[4], want[4]))]
-                worst = 0.0
-                for name, a, r in pairs:
-                    tol = 1e-4 if name in ("mu", "var") else 1e-3
-                    d = (a.float() - r.float()).abs()
-                    worst = max(worst, d.max().item())
-                    if not bool((d <= tol + 1e-4 * r.float().abs()).all()):
-                        raise AssertionError(f"tower forward f32 {mode} {name}: max abs err "
-                                             f"{d.max().item():.3g}")
-                log(f"[tower] forward f32 {mode}: output, 7 x and 8 y buffers and mu/var within "
-                    f"the f32 band; max abs err {worst:.3g} (|y7| max "
-                    f"{want[0].abs().max().item():.3g})")
-            else:
-                checks = [("y7", 0)] + ([("mu", 1), ("var", 2)] if train else [])
-                for name, i in checks:
-                    e_k = (got[i].float() - want[i].float()).abs()
-                    e_p = (plain[i].float() - want[i].float()).abs()
-                    log(f"[tower] forward bf16 {mode} {name}: error vs f32, kernels max "
-                        f"{e_k.max().item():.4g} mean {e_k.mean().item():.4g}; plain max "
-                        f"{e_p.max().item():.4g} mean {e_p.mean().item():.4g}")
-                    if (e_k.max() > TOWER_BF16_FACTOR * e_p.max()
-                            or e_k.mean() > TOWER_BF16_FACTOR * e_p.mean()):
-                        raise AssertionError(f"tower forward bf16 {mode} {name}: kernel error "
-                                             f"beyond {TOWER_BF16_FACTOR} x the plain bf16's")
-                if train:
-                    errs["fwd"] = y_err
-        # Backward, train mode.
-        p_ref = params_for(torch.float32, requires_grad=True)
-        x_ref = xd.float().clone().requires_grad_()
-        g_ref = grads(lambda x, p: tower_ref(x, p, run_stats, True)[0], x_ref, p_ref)
-        gmax = max(t.abs().max().item() for t in g_ref)
-        if dt == torch.float32:
-            with torch.no_grad():
-                y7, mu, var, xs, ys = tower_ref(xd, params_for(dt), run_stats, True, buffers=True)
-                got = tower_backward_cuda(
-                    g_out, xd, [t.contiguous() for t in xs], [t.contiguous() for t in ys],
-                    [k.contiguous() for k in base["kernels"]], base["gammas"], base["betas"],
-                    mu, var)
-            torch.cuda.synchronize()
-            flat = [got[0]] + list(got[1]) + list(got[2]) + [got[3], got[4]]
-            worst = []
-            for name, a, r in zip(names, flat, g_ref):
-                if name in bn_bias_grads:
-                    ok = a.abs().max().item() <= 1e-4 * gmax
-                    worst.append((a.abs().max().item() / gmax, name))
+
+    def check(shape):
+        """Forward and backward against tower_ref at one shape; returns the
+        bf16 errors of the output and of dx0 against the plain chain."""
+        x0, g_out = inputs(*shape)
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x0.to(dt)
+            for train in (True, False):
+                mode = f"{'train' if train else 'eval'} {shape}"
+                with torch.no_grad():
+                    p32 = params_for(dt)
+                    want = tower_ref(xd.float(), p32, run_stats, train, buffers=True)
+                    plain = tower_ref(xd, {**p32, "kernels": [k.to(dt) for k in p32["kernels"]]},
+                                      run_stats, train, buffers=True)
+                    got = tower_forward_cuda(xd, [k.to(dt).contiguous() for k in p32["kernels"]],
+                                             p32["biases"], p32["gammas"], p32["betas"],
+                                             run_stats, train)
+                torch.cuda.synchronize()
+                y_err = (got[0].float() - plain[0].float()).abs().max().item()
+                if dt == torch.float32:
+                    pairs = [("y7", got[0], want[0]), ("mu", got[1], want[1]),
+                             ("var", got[2], want[2])]
+                    pairs += [(f"x{i + 1}", a, r) for i, (a, r) in enumerate(zip(got[3], want[3]))]
+                    pairs += [(f"y{i}", a, r) for i, (a, r) in enumerate(zip(got[4], want[4]))]
+                    worst = 0.0
+                    for name, a, r in pairs:
+                        tol = 1e-4 if name in ("mu", "var") else 1e-3
+                        d = (a.float() - r.float()).abs()
+                        worst = max(worst, d.max().item())
+                        if not bool((d <= tol + 1e-4 * r.float().abs()).all()):
+                            raise AssertionError(f"tower forward f32 {mode} {name}: max abs err "
+                                                 f"{d.max().item():.3g}")
+                    log(f"[tower] forward f32 {mode}: output, 7 x and 8 y buffers and mu/var "
+                        f"within the f32 band; max abs err {worst:.3g} (|y7| max "
+                        f"{want[0].abs().max().item():.3g})")
                 else:
-                    e = rel_l2(a, r)
-                    ok = e <= TOWER_F32_GRAD_L2
-                    worst.append((e, name))
-                if not ok:
-                    raise AssertionError(f"tower backward f32 {name}: {worst[-1]}")
-            log(f"[tower] backward f32 on the plain chain's buffers: every gradient within "
-                f"{TOWER_F32_GRAD_L2} relative L2 (worst {max(worst)})")
-        else:
-            p_k = params_for(dt, requires_grad=True)
-            x_k = xd.clone().requires_grad_()
-            g_k = grads(lambda x, p: tower_cuda(x, {**p, "kernels": [k.to(dt) for k in
-                                                                     p["kernels"]]},
-                                                run_stats, True)[0], x_k, p_k)
-            p_p = params_for(dt, requires_grad=True)
-            x_p = xd.clone().requires_grad_()
-            g_p = grads(lambda x, p: tower_ref(x, {**p, "kernels": [k.to(dt) for k in
-                                                                    p["kernels"]]},
-                                               run_stats, True)[0], x_p, p_p)
-            torch.cuda.synchronize()
-            errs["bwd"] = (g_k[0] - g_p[0]).abs().max().item()
-            for name, a, pl, r in zip(names, g_k, g_p, g_ref):
-                if name in bn_bias_grads:
-                    continue
-                e_k, e_p = rel_l2(a, r), rel_l2(pl, r)
-                log(f"[tower] backward bf16 {name}: relative L2 error vs f32, kernels "
-                    f"{e_k:.4g}, plain {e_p:.4g}")
-                if e_k > TOWER_BF16_FACTOR * e_p + TOWER_F32_GRAD_L2:
-                    raise AssertionError(f"tower backward bf16 {name}: kernel error beyond "
-                                         f"{TOWER_BF16_FACTOR} x the plain bf16's")
+                    checks = [("y7", 0)] + ([("mu", 1), ("var", 2)] if train else [])
+                    for name, i in checks:
+                        e_k = (got[i].float() - want[i].float()).abs()
+                        e_p = (plain[i].float() - want[i].float()).abs()
+                        log(f"[tower] forward bf16 {mode} {name}: error vs f32, kernels max "
+                            f"{e_k.max().item():.4g} mean {e_k.mean().item():.4g}; plain max "
+                            f"{e_p.max().item():.4g} mean {e_p.mean().item():.4g}")
+                        if (e_k.max() > TOWER_BF16_FACTOR * e_p.max()
+                                or e_k.mean() > TOWER_BF16_FACTOR * e_p.mean()):
+                            raise AssertionError(f"tower forward bf16 {mode} {name}: kernel "
+                                                 f"error beyond {TOWER_BF16_FACTOR} x the "
+                                                 "plain bf16's")
+                    if train:
+                        out["fwd"] = y_err
+            # Backward, train mode.
+            p_ref = params_for(torch.float32, requires_grad=True)
+            x_ref = xd.float().clone().requires_grad_()
+            g_ref = grads(lambda x, p: tower_ref(x, p, run_stats, True)[0], x_ref, p_ref, g_out)
+            gmax = max(t.abs().max().item() for t in g_ref)
+            if dt == torch.float32:
+                with torch.no_grad():
+                    y7, mu, var, xs, ys = tower_ref(xd, params_for(dt), run_stats, True,
+                                                    buffers=True)
+                    got = tower_backward_cuda(
+                        g_out, xd, [t.contiguous() for t in xs], [t.contiguous() for t in ys],
+                        [k.contiguous() for k in base["kernels"]], base["gammas"],
+                        base["betas"], mu, var)
+                torch.cuda.synchronize()
+                flat = [got[0]] + list(got[1]) + list(got[2]) + [got[3], got[4]]
+                worst = []
+                for name, a, r in zip(names, flat, g_ref):
+                    if name in bn_bias_grads:
+                        ok = a.abs().max().item() <= 1e-4 * gmax
+                        worst.append((a.abs().max().item() / gmax, name))
+                    else:
+                        e = rel_l2(a, r)
+                        ok = e <= TOWER_F32_GRAD_L2
+                        worst.append((e, name))
+                    if not ok:
+                        raise AssertionError(f"tower backward f32 {shape} {name}: {worst[-1]}")
+                log(f"[tower] backward f32 {shape} on the plain chain's buffers: every gradient "
+                    f"within {TOWER_F32_GRAD_L2} relative L2 (worst {max(worst)})")
+            else:
+                p_k = params_for(dt, requires_grad=True)
+                x_k = xd.clone().requires_grad_()
+                g_k = grads(lambda x, p: tower_cuda(x, {**p, "kernels": [k.to(dt) for k in
+                                                                         p["kernels"]]},
+                                                    run_stats, True)[0], x_k, p_k, g_out)
+                p_p = params_for(dt, requires_grad=True)
+                x_p = xd.clone().requires_grad_()
+                g_p = grads(lambda x, p: tower_ref(x, {**p, "kernels": [k.to(dt) for k in
+                                                                        p["kernels"]]},
+                                                   run_stats, True)[0], x_p, p_p, g_out)
+                torch.cuda.synchronize()
+                out["bwd"] = (g_k[0] - g_p[0]).abs().max().item()
+                for name, a, pl, r in zip(names, g_k, g_p, g_ref):
+                    if name in bn_bias_grads:
+                        continue
+                    e_k, e_p = rel_l2(a, r), rel_l2(pl, r)
+                    log(f"[tower] backward bf16 {shape} {name}: relative L2 error vs f32, "
+                        f"kernels {e_k:.4g}, plain {e_p:.4g}")
+                    if e_k > TOWER_BF16_FACTOR * e_p + TOWER_F32_GRAD_L2:
+                        raise AssertionError(f"tower backward bf16 {shape} {name}: kernel error "
+                                             f"beyond {TOWER_BF16_FACTOR} x the plain bf16's")
+                # The cross-block sums run in a fixed order: a second run on
+                # the same inputs gives the same bits.
+                p16 = {**params_for(dt), "kernels": [k.to(dt).contiguous()
+                                                     for k in base["kernels"]]}
+                with torch.no_grad():
+                    _, mu, var, xs, ys = tower_forward_cuda(
+                        xd, p16["kernels"], p16["biases"], p16["gammas"], p16["betas"],
+                        run_stats, True)
+                    runs = [tower_backward_cuda(g_out, xd, xs, ys, p16["kernels"],
+                                                p16["gammas"], p16["betas"], mu, var)
+                            for _ in range(2)]
+                torch.cuda.synchronize()
+                flat = [[r[0]] + list(r[1]) + list(r[2]) + [r[3], r[4]] for r in runs]
+                unequal = [n for n, a, c in zip(names, *flat) if not torch.equal(a, c)]
+                log(f"[tower] backward bf16 {shape}, two runs on the same inputs: every "
+                    f"gradient bitwise equal {not unequal}")
+                if unequal:
+                    raise AssertionError(f"tower backward bf16 {shape}: runs differ in {unequal}")
+        return out
+
+    b, h, w = 2, 320, 960
+    errs = check((b, h, w))
+    check(TOWER_TAIL)
+    x0, g_out = inputs(b, h, w)
 
     # Times at the training shape, bf16, train mode. The kernels by CUDA
     # events with the host ahead; the plain chain's forward the same way.
@@ -719,19 +784,31 @@ def tower_phase(model_cpu, dev, seed, rows):
         f"{refine_fwd[True]:.4f} ms, module path {refine_fwd[False]:.4f} ms; backward alone "
         f"(autograd.grad, graph built beforehand): fused_tower=True {refine_bwd[True]:.4f} ms, "
         f"module path {refine_bwd[False]:.4f} ms")
-    for name, replaces, t, plain_ms, nbytes, ops, err, wrapper in (
+    with torch.no_grad():
+        for label, fn in (("forward", fwd), ("backward", bwd)):
+            times = launch_times(fn)
+            own = [(name, us) for name, us in times if not name.startswith("at::")]
+            torch_us = sum(us for name, us in times if name.startswith("at::"))
+            log(f"[tower] {label} chain, device us of its {len(own)} launches in order: "
+                + ", ".join(f"{name} {us:.1f}" for name, us in own)
+                + f"; beside them {len(times) - len(own)} PyTorch kernels (BN terms, "
+                f"casts), {torch_us:.1f} us")
+    # The library yardstick of each chain: the refinement module path's
+    # forward alone and backward alone (cuDNN conv2d + the port's BN and
+    # LeakyReLU), which the port never calls with fused_tower=True.
+    for name, replaces, t, plain_ms, nbytes, ops, err, wrapper, lib_ms in (
             ("tower_forward", "tower.py:285", t_fwd, t_plain.ms, fwd_bytes, flops,
-             errs["fwd"], tower_forward_cuda),
+             errs["fwd"], tower_forward_cuda, refine_fwd[False]),
             ("tower_backward", "tower.py:501", t_bwd, d_plain_bwd, bwd_bytes, 2 * flops,
-             errs["bwd"], tower_backward_cuda)):
+             errs["bwd"], tower_backward_cuda, refine_bwd[False])):
         b_ms, b_by = bound(nbytes, ops, "bf16_tensor")
-        log(f"[kernels] {name}: kernel {t}; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
-            f"({b_by})")
+        log(f"[kernels] {name}: kernel {t}; plain {plain_ms:.4f} ms; module path "
+            f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
         rows.append(dict(name=name, route="cuda",
                          source="adaptive_stereo_tpu_torch/csrc/tower.cu",
                          replaces=f"adaptive_stereo_tpu/ops/pallas/{replaces}", wrapper=wrapper,
                          max_abs_err=err, ms=t.ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None, launches=0))
+                         bound_by=b_by, library_ms=lib_ms, launches=0))
 
 
 def autograd_phase(params, run_stats, dev, seed):
@@ -924,6 +1001,10 @@ def training_phase(seed, dev, rows):
             missing = [n for n, c in launches.items() if (c == 0) != (n == "coarse_head")]
             if missing:
                 raise AssertionError(f"launch counts of the training path: {launches}")
+            # The tower's chains: at most 15 forward and 32 backward launches.
+            if (launches["tower_forward"] > 15 * STEPS
+                    or launches["tower_backward"] > 32 * STEPS):
+                raise AssertionError(f"the tower's launches per step: {launches}")
         elif launches["tower_forward"] or launches["tower_backward"]:
             raise AssertionError("fused_tower=False launched the tower kernels")
         log_rows = ss.log[:int(ss.log_pos)].cpu().numpy()

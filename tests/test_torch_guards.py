@@ -102,7 +102,8 @@ def test_library_name_follows_the_sources():
     assert names == {"cost_volume.cu", "aggregation.cu", "disparity.cu", "coarse_head.cu",
                      "tower.cu"}
     headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
-    assert headers == {"common.cuh", "bn_stats.cuh", "conv3d.cuh", "soft_argmin_fcs.cuh"}
+    assert headers == {"common.cuh", "bn_stats.cuh", "conv3d.cuh", "mma.cuh",
+                       "soft_argmin_fcs.cuh"}
     ignored = (REPO / ".gitignore").read_text().split()
     assert "adaptive_stereo_tpu_torch/_build/" in ignored
 
