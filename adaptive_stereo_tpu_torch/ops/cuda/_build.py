@@ -46,12 +46,15 @@ _F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as c_void_p, so
 # ctypes never truncates a 64-bit address to a 32-bit int.
 _SIGNATURES = {
-    "stereo_cost_volume_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stereo_cost_volume_forward": [_P] * 3 + [_I] * 6 + [_P],
+    "stereo_cost_volume_backward": [_P] * 3 + [_I] * 6 + [_P],
+    "stereo_noop": [_P],
     "stereo_conv3d_bn_leaky_forward": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "stereo_conv3d_stats_forward": [_P] * 5 + [_I] * 8 + [_P],
     "stereo_bn_stats_finalize": [_P, _I, _I, _I, _P, _P, _P],
     "stereo_bn_leaky_apply": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
     "stereo_soft_argmin_fcs_forward": [_P, _P, _P, _I, _I, _I, _P],
+    "stereo_soft_argmin_backward": [_P] * 4 + [_I] * 3 + [_P],
     "stereo_coarse_head_forward": [_P] * 18 + [_I] * 9 + [_F, _F, _I, _P],
     "stereo_tower_conv": [_P] * 15 + [_I] * 8 + [_F, _I, _P],
     "stereo_tower_grad_y": [_P] * 9 + [_I] * 2 + [_F, _I, _P],

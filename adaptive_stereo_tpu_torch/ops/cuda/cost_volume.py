@@ -6,10 +6,16 @@ plain version is ops/cost_volume.py:difference_cost_volume, re-exported here
 as difference_cost_volume_ref. The wrapper takes the plain version for CPU
 tensors only; on CUDA tensors it launches the kernel or raises.
 
-On CUDA the wrapper is a torch.autograd.Function whose backward is plain
-PyTorch, the JAX custom VJP (ops/pallas/cost_volume.py:87-104): masked
+On CUDA the wrapper is a torch.autograd.Function whose backward is the
+kernel stereo_cost_volume_backward, one launch, the counterpart of the JAX
+custom VJP (ops/pallas/cost_volume.py:87-104, plain jnp there): masked
 shift-sums of the incoming gradient,
     dL/df_l[x] = sum_d g[d, x] (x >= d),  dL/df_r[x] = -sum_d g[d, x + d].
+Its plain version is difference_cost_volume_backward, which the Function
+takes for CPU tensors. Each kernel takes 16-byte chunks where C * itemsize
+is a multiple of 16 and every pointer is 16-byte aligned, else one element a
+thread; the C entry points pick. Launches are counted in
+difference_cost_volume_cuda.launches and .backward_launches.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ class _CostVolume(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        d_fl, d_fr = difference_cost_volume_backward(g.contiguous())
+        g = g.contiguous()
+        if g.device.type == "cpu":
+            d_fl, d_fr = difference_cost_volume_backward(g)
+        else:
+            d_fl, d_fr = _launch_backward(g)
         return d_fl, d_fr, None
 
 
@@ -75,4 +85,25 @@ def _launch(f_l: torch.Tensor, f_r: torch.Tensor, num_disp: int) -> torch.Tensor
     return out
 
 
+def _launch_backward(g: torch.Tensor):
+    """(dL/df_l, dL/df_r) from a contiguous CUDA g (B, D, H, W, C): one launch
+    of stereo_cost_volume_backward, bitwise equal to
+    difference_cost_volume_backward."""
+    _build.require_cuda(g, "g", tuple(_build.DTYPE_CODES))
+    if g.dim() != 5:
+        raise ValueError(f"g must be (B, D, H, W, C), got {tuple(g.shape)}")
+    b, d, h, w, c = g.shape
+    d_fl = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    d_fr = torch.empty_like(d_fl)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        status = lib.stereo_cost_volume_backward(
+            g.data_ptr(), d_fl.data_ptr(), d_fr.data_ptr(), b, h, w, c, d,
+            _build.DTYPE_CODES[g.dtype], _build.stream_of(g))
+    _build.check(status, "stereo_cost_volume_backward")
+    difference_cost_volume_cuda.backward_launches += 1
+    return d_fl, d_fr
+
+
 difference_cost_volume_cuda.launches = 0
+difference_cost_volume_cuda.backward_launches = 0

@@ -6,9 +6,13 @@ version, soft_argmin_fcs_ref, composes ops/soft_argmin.py and ops/fcs.py.
 The wrapper takes the plain version for CPU tensors only; on CUDA tensors it
 launches the kernel or raises.
 
-On CUDA the wrapper is a torch.autograd.Function whose backward is plain
-PyTorch, the JAX custom VJP (ops/pallas/disparity.py:89-100):
-d disp / d cost_j = p_j * (j - disp), and FCS is a stop-gradient.
+On CUDA the wrapper is a torch.autograd.Function whose backward is the
+kernel stereo_soft_argmin_backward, one launch, the counterpart of the JAX
+custom VJP (ops/pallas/disparity.py:89-100, plain jnp there):
+d disp / d cost_j = p_j * (j - disp), and FCS is a stop-gradient. Its plain
+version is soft_argmin_fcs_backward, which the Function takes for CPU
+tensors. Launches are counted in soft_argmin_fcs_cuda.launches and
+.backward_launches.
 """
 
 from __future__ import annotations
@@ -52,7 +56,10 @@ class _SoftArgminFcs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_disp, _g_fcs):
         cost, disp = ctx.saved_tensors
-        return soft_argmin_fcs_backward(cost, disp, g_disp)
+        g_disp = g_disp.contiguous()
+        if cost.device.type == "cpu":
+            return soft_argmin_fcs_backward(cost, disp, g_disp)
+        return _launch_backward(cost, disp, g_disp)
 
 
 def soft_argmin_fcs_cuda(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,4 +90,26 @@ def _launch(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return disp, fcs
 
 
+def _launch_backward(cost: torch.Tensor, disp: torch.Tensor,
+                     g_disp: torch.Tensor) -> torch.Tensor:
+    """dL/dcost (B, D, H, W) float32: one launch of
+    stereo_soft_argmin_backward on the saved cost and disparity."""
+    _build.require_cuda(cost, "cost", (torch.float32,))
+    if cost.dim() != 4:
+        raise ValueError(f"cost must be (B, D, H, W), got {tuple(cost.shape)}")
+    b, d, h, w = cost.shape
+    _build.require_cuda(disp, "disp", (torch.float32,), (b, h, w))
+    _build.require_cuda(g_disp, "g_disp", (torch.float32,), (b, h, w))
+    g_cost = torch.empty_like(cost)
+    lib = _build.library()
+    with torch.cuda.device(cost.device):
+        status = lib.stereo_soft_argmin_backward(
+            cost.data_ptr(), disp.data_ptr(), g_disp.data_ptr(), g_cost.data_ptr(), b, d,
+            h * w, _build.stream_of(cost))
+    _build.check(status, "stereo_soft_argmin_backward")
+    soft_argmin_fcs_cuda.backward_launches += 1
+    return g_cost
+
+
 soft_argmin_fcs_cuda.launches = 0
+soft_argmin_fcs_cuda.backward_launches = 0

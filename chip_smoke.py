@@ -8,12 +8,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               -Xptxas -v registers, shared memory and spills and the SASS
               HMMA count of kernels 2 and 4 and of the tower's kernels (no
               spills; HMMA in the bf16 instances of kernels 2 and 4 and in
-              the tower's bf16 tensor-core convs and weight gradients)
-  3. kernels  each kernel against its plain PyTorch version on the card at the
-              serving shapes (320x1216, k=4: features (1,20,76,32), cost volume
-              (1,12,20,76,32), cost (1,12,20,76)), with times by CUDA events:
-              kernels 1-3, and kernels 2 and 4 (the fused coarse head) in eval
-              and train mode, f32 and bf16, kernel 4 also against kernels 1-3
+              the tower's bf16 tensor-core convs and weight gradients), and
+              the registers and spills of kernels 1 and 3, forward and
+              backward (no spills)
+  3. kernels  the launch floor (an empty kernel through the same ctypes path),
+              then each kernel against its plain PyTorch version on the card
+              at the serving shapes (320x1216, k=4: features (1,20,76,32),
+              cost volume (1,12,20,76,32), cost (1,12,20,76)), with times by
+              CUDA events: kernels 1 and 3 also at the training shape and at
+              RAGGED (the scalar path, D > W) and kernel 3 at SOFT_ARGMIN_D
+              (its other register instances and its loop over memory),
+              kernel 1 also at CV_ODD_C and on a view off a 16-byte
+              boundary (the scalar path); kernels 2 and 4 (the fused
+              coarse head) in eval and train mode, f32 and bf16, kernel 4
+              also against kernels 1-3
               composed, both also at the training shape (2,12,20,60) and at
               CHECK_SHAPES; kernel 2's train mode and the train-mode cuDNN
               yardsticks timed at the serving and training shapes
@@ -42,7 +50,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. autograd kernels 1-3 at the training shapes (batch 2, coarse 20x60):
               their forward outputs against the plain versions, f32 and
               bf16, kernel 2 in train mode; the gradients through the
-              wrappers of kernels 1, 3 and 4 against the plain versions'
+              wrappers of kernels 1, 3 and 4 against the plain versions';
+              the backward kernels of kernels 1 and 3 through autograd
+              against their plain versions (kernel 1 bitwise in f32 and
+              bf16 at the training shape, at D > W, RAGGED and CV_ODD_C
+              (the scalar path in f32 too); kernel 3
+              within 1e-5 (1 + max|grad|) at the training shape, RAGGED and
+              SOFT_ARGMIN_D),
+              and their times, one launch each, against the plain versions'
+              device-time sums
   9. training the online adaptation step (engine/flat_stream.py) at bench.py's
               configuration, 320x960, k=4, bf16, with fused_siamese and
               fused_tower, from seeded random weights: STEPS adapt steps
@@ -51,13 +67,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               fused_tower=False (the cuDNN yardstick); one step with the
               kernels against one with the plain versions from the same
               state, on two frames, per module, beside a control (a plain
-              step on another frame); device time by kernel over a few steps
+              step on another frame); device time by kernel over a few steps;
+              every adapt step launches the backward kernels of kernels 1
+              and 3 exactly once each; launches and host operators a step
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
 whose "launches" count the served frames of phase 4 (kernels 1-4) or the
 adapt steps of phase 9 (the tower), and "train_launches" the adapt steps
-of phase 9 for every kernel.
+of phase 9 for every kernel; "floor_ms" is the launch floor, and the rows
+of kernels 1 and 3 also carry their backward kernel's time, plain
+version's time, bound and launches over the adapt steps of phase 9.
 Float32 references run with TF32 off (cudnn.allow_tf32 and
 cuda.matmul.allow_tf32 both False), set at the start.
 """
@@ -95,6 +115,19 @@ CHECK_SHAPES = ((2, 3, 5, 7), (1, 12, 3, 300))
 # The tower is also checked where its 8x16 pixel tiles leave a tail in H and
 # in W (37 = 4 x 8 + 5, 53 = 3 x 16 + 5).
 TOWER_TAIL = (1, 37, 53)
+# Kernels 1 and 3 are also checked where their paths split: features (B, H,
+# W, C) and D with D > W (every slice from d = W on is zero) whose bf16 rows
+# (C * 2 = 8 bytes) take the scalar path, and kernel 3 at the two other D it
+# holds in registers (6, 24) and at D it does not (3, 40: the loop over
+# memory).
+RAGGED = ((2, 5, 7, 4), 9)
+SOFT_ARGMIN_D = (3, 6, 24, 40)
+# Kernel 1's backward is also checked at D > W with 16-byte chunks, and
+# both of its directions at a C whose rows take the scalar path in f32 too.
+CV_WIDE_D = ((1, 3, 5, 32), 9)
+CV_ODD_C = ((2, 5, 7, 3), 9)
+# The adapt step before kernels 1 and 3 had backward kernels (PERF.md §5).
+STEP_LAUNCHES_BEFORE, STEP_OPERATORS_BEFORE = 1474, 9928
 FRAMES = 8  # served frames in phase 4, by each engine
 STEPS = 20  # timed adapt steps in phase 9, after WARMUP_STEPS
 WARMUP_STEPS = 3
@@ -158,14 +191,19 @@ def conv_kernel_report(path) -> None:
     2 and 4 has no HMMA, or if one of the tower's six bf16 tensor-core
     instances (tower_conv_mma_kernel for 32, 4 and 1 output channels,
     tower_wgrad_mma_kernel for layers 1-6, 7 and 0) has none: its product
-    does not run on the tensor cores."""
+    does not run on the tensor cores. Also reads the instances of kernels 1
+    and 3, forward and backward (one line a kernel: instances, registers,
+    spills), and fails if one of the four is missing or an instance
+    spills."""
     import re
     from pathlib import Path
 
     from adaptive_stereo_tpu_torch.ops.cuda import _build
 
     conv3d = ("conv3d_layer_kernel", "coarse_head_kernel")
-    names = conv3d + ("tower_",)
+    small = ("cost_volume_kernel", "cost_volume_backward_kernel", "soft_argmin_fcs_kernel",
+             "soft_argmin_backward_kernel")
+    names = conv3d + ("tower_",) + small
     ptxas, current = {}, None
     for line in _build.ptxas_report_path().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -201,7 +239,19 @@ def conv_kernel_report(path) -> None:
         raise AssertionError(f"expected 6 conv3d kernel instances and the tower's 6 tensor-core "
                              f"instances in the ptxas report: {sorted(ptxas)}")
     failed = []
+    for kernel in small:
+        # Mangled names carry the length of the name first: 18cost_volume_kernel.
+        tag = f"{len(kernel)}{kernel}"
+        found = {n: i for n, i in ptxas.items() if tag in n}
+        spill = sum(i.get("spill", 1) for i in found.values())
+        regs = [i.get("registers") or 0 for i in found.values()]
+        log(f"[build] {kernel}: {len(found)} instances, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)}, spill {spill} bytes")
+        if not found or spill:
+            failed.append(f"{kernel}: {len(found)} instances, spill {spill} bytes")
     for name, info in sorted(ptxas.items()):
+        if any(f"{len(k)}{k}" in name for k in small):
+            continue
         count = hmma.get(name, 0)
         log(f"[build] {name}: {info.get('registers')} registers, {info.get('static_smem')} "
             f"bytes static smem (+ dynamic staging), spill {info.get('spill')} bytes, HMMA "
@@ -336,19 +386,31 @@ def launch_times(fn):
     return [(short(e.name), e.time_range.end - e.time_range.start) for e in evts]
 
 
+def cv_path(c: int, *tensors: torch.Tensor) -> str:
+    """The path the cost-volume entry points pick for these tensors (the
+    rule of vec_ok in csrc/cost_volume.cu): 16-byte chunks when C * itemsize
+    is a multiple of 16 and every pointer is on a 16-byte boundary, else
+    the scalar path."""
+    chunks = c * tensors[0].element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+    return "16-byte" if chunks else "scalar"
+
+
 def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
                       host_top: int = 0) -> None:
     """Print device time by kernel name over `repeats` calls of fn() and the
     device's busy share of the wall time, from torch.profiler; with
     host_top, also the host's operator count and its largest self CPU
-    times (inflated by the profiler's own cost per operator)."""
+    times (inflated by the profiler's own cost per operator). Returns the
+    host operators and the kernel launches (cudaLaunchKernel calls) per
+    call of fn() (None, None without device time)."""
     from torch.autograd import DeviceType
 
     prof, wall_us, per_name = device_profile(fn, repeats)
     total = sum(t for t, _, _ in per_name)
     if total == 0:
         log("[profile] torch.profiler recorded no device time")
-        return
+        return None, None
     log(f"[profile] {repeats} {unit}s: wall {wall_us / repeats / 1e3:.3f} ms/{unit}, device "
         f"busy {total / repeats / 1e3:.3f} ms/{unit} ({100 * total / wall_us:.1f}% of wall)")
     log(f"[profile]   {sum(c for _, c, _ in per_name) / repeats:.0f} device calls/{unit}")
@@ -363,6 +425,9 @@ def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
         for cpu_us, count, name in sorted(host, reverse=True)[:host_top]:
             log(f"[profile]   {cpu_us / repeats / 1e3:8.4f} ms/{unit}  {count // repeats:4d} "
                 f"calls/{unit}  {name[:90]}")
+    host = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CPU]
+    return (sum(evt.count for evt in host) / repeats,
+            sum(evt.count for evt in host if evt.key == "cudaLaunchKernel") / repeats)
 
 
 def bound(nbytes: float, ops: float, op_type: str):
@@ -371,15 +436,38 @@ def bound(nbytes: float, ops: float, op_type: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def launch_floor() -> Timing:
+    """Device time per launch of an empty kernel (stereo_noop) through the
+    same ctypes path as the wrappers: the least a launch-bound kernel can
+    take on this card, beside each kernel's bound."""
+    from adaptive_stereo_tpu_torch.ops.cuda import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = time_ms(lambda: _build.check(lib.stereo_noop(stream), "stereo_noop"))
+    log(f"[kernels] launch floor, an empty kernel through the wrappers' ctypes path: {floor}")
+    return floor
+
+
+def soft_argmin_shapes(num_disp, h, w):
+    """The costs (B, D, H, W) kernel 3 is checked at: the serving shape
+    first, the training shape, RAGGED and SOFT_ARGMIN_D."""
+    (rb, rh, rw, _), rd = RAGGED
+    return [(1, num_disp, h, w), TRAIN_COARSE, (rb, rd, rh, rw)] + [
+        (rb, d, rh, rw) for d in SOFT_ARGMIN_D]
+
+
 def kernel_row(name, source, replaces, wrapper, per_frame, max_abs_err, kernel_fn,
-               plain_fn, library_fn, nbytes, ops, op_type, note):
+               plain_fn, library_fn, nbytes, ops, op_type, note, floor=None):
     """Time a kernel, its plain version and (if any) the library call; log
-    them with the bound; return the kernel's row of the table."""
+    them with the bound (and the launch floor, if given); return the
+    kernel's row of the table."""
     kern, plain = time_ms(kernel_fn), time_ms(plain_fn)
     lib = time_ms(library_fn) if library_fn is not None else None
     b_ms, b_by = bound(nbytes, ops, op_type)
     log(f"[kernels] {name} {note}: kernel {kern}; plain {plain}; library "
-        f"{lib if lib is not None else '-'}; bound {b_ms:.5f} ms ({b_by})")
+        f"{lib if lib is not None else '-'}; bound {b_ms:.5f} ms ({b_by})"
+        + (f"; launch floor {floor.ms:.4f} ms" if floor is not None else ""))
     return dict(name=name, route="cuda", source=f"adaptive_stereo_tpu_torch/csrc/{source}",
                 replaces=f"adaptive_stereo_tpu/ops/pallas/{replaces}", wrapper=wrapper,
                 per_frame=per_frame, max_abs_err=max_abs_err, ms=kern.ms, plain_ms=plain.ms,
@@ -811,13 +899,15 @@ def tower_phase(model_cpu, dev, seed, rows):
                          bound_by=b_by, library_ms=lib_ms, launches=0))
 
 
-def autograd_phase(params, run_stats, dev, seed):
+def autograd_phase(params, run_stats, dev, seed, rows):
     """Phase 8: kernels 1-3 at the training shapes (batch 2, coarse 20x60,
     D = 12). Their forward outputs against the plain versions, f32 and bf16,
     kernel 2 in train mode (batch statistics over both images): the cost
     volume bitwise, the aggregation's out/mu/var within the aggregation
     band, soft-argmin + FCS within DISP_ABS. Then the gradients of kernels 1
-    and 3 through the wrappers against those through the plain versions.
+    and 3 through the wrappers against those through the plain versions,
+    and their backward kernels through autograd against the plain
+    backwards (backward_kernels), timed into their rows.
     Kernel 2's gradient is not compared here: its backward recomputes
     through the plain version, so both sides would run the same code.
     Kernel 4's backward recomputes too, through coarse_head_ref; its check
@@ -876,11 +966,13 @@ def autograd_phase(params, run_stats, dev, seed):
     sa_err = (gk[0] - gp[0]).abs().max().item()
     sa_scale = gp[0].abs().max().item()
     log(f"[autograd] gradients f32: cost volume max abs diff {cv_err:.3g} (the wrapper's "
-        f"backward is plain shift-sums: this checks it and its wiring, not the kernel); "
-        f"soft-argmin max abs diff {sa_err:.3g} (|grad| max {sa_scale:.3g}; the backward "
-        f"uses the kernel's disparity)")
+        f"backward is the kernel stereo_cost_volume_backward, against autograd through the "
+        f"plain forward's slices); soft-argmin max abs diff {sa_err:.3g} (|grad| max "
+        f"{sa_scale:.3g}; the backward kernel stereo_soft_argmin_backward uses the forward "
+        f"kernel's disparity)")
     if cv_err > 1e-5 or sa_err > 1e-5 * (1 + sa_scale):
         raise AssertionError("kernel 1 or 3: gradients through the wrapper disagree")
+    backward_kernels(dev, seed, rows)
 
     for train in (False, True):
         def head(fn):
@@ -898,6 +990,88 @@ def autograd_phase(params, run_stats, dev, seed):
         if err > 1e-5 * (1 + scale):
             raise AssertionError(f"kernel 4 train={train}: gradients through the wrapper "
                                  "disagree")
+
+
+def backward_kernels(dev, seed, rows):
+    """The backward kernels of kernels 1 and 3 through autograd (the
+    wrappers' Functions on CUDA tensors) against their plain versions, then
+    their times. Kernel 1 (stereo_cost_volume_backward): torch.equal with
+    difference_cost_volume_backward in f32 and bf16 at the training shape,
+    at CV_WIDE_D (D > W, 16-byte chunks), at RAGGED (in bf16 the scalar
+    path) and at CV_ODD_C (the scalar path in both). Kernel 3
+    (stereo_soft_argmin_backward): within 1e-5 (1 + max|grad|) of
+    soft_argmin_fcs_backward on the kernel's own disparity (torch's softmax
+    sums in its own order), at the training shape, RAGGED and
+    SOFT_ARGMIN_D. Each backward must launch its kernel once. Times at
+    the training shape (bf16 volume, f32 cost), by CUDA events for the one
+    launch, and the plain versions' device-time sums (torch.profiler), with
+    their kernel counts."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (difference_cost_volume_cuda,
+                                                    soft_argmin_fcs_cuda)
+    from adaptive_stereo_tpu_torch.ops.cuda import cost_volume as cv_mod
+    from adaptive_stereo_tpu_torch.ops.cuda import disparity as disp_mod
+
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    b, d, h, w = TRAIN_COARSE
+    c = 32
+    for dt in (torch.float32, torch.bfloat16):
+        for (fb, fh, fw, fc), fd in [((b, h, w, c), d), CV_WIDE_D, RAGGED, CV_ODD_C]:
+            fl, fr = (rn(fb, fh, fw, fc).to(dt).requires_grad_() for _ in range(2))
+            g_out = rn(fb, fd, fh, fw, fc).to(dt)
+            before = difference_cost_volume_cuda.backward_launches
+            got = torch.autograd.grad(difference_cost_volume_cuda(fl, fr, fd), (fl, fr), g_out)
+            want = cv_mod.difference_cost_volume_backward(g_out)
+            torch.cuda.synchronize()
+            launched = difference_cost_volume_cuda.backward_launches - before
+            equal = all(torch.equal(a, r) for a, r in zip(got, want))
+            path = cv_path(fc, g_out, *got)
+            log(f"[autograd] cost volume backward kernel ({fb},{fd},{fh},{fw},{fc}) {dt}, {path} "
+                f"path: bitwise equal to difference_cost_volume_backward {equal}; launches "
+                f"{launched}")
+            if not equal or launched != 1:
+                raise AssertionError(f"cost volume backward ({fb},{fd},{fh},{fw},{fc}) {dt}: "
+                                     f"equal {equal}, launches {launched}")
+    (rb, rh, rw, _), rd = RAGGED
+    for shape in [TRAIN_COARSE, (rb, rd, rh, rw)] + [(rb, dd, rh, rw) for dd in SOFT_ARGMIN_D]:
+        cost = (rn(*shape) * 5).requires_grad_()
+        g_out = rn(shape[0], *shape[2:])
+        before = soft_argmin_fcs_cuda.backward_launches
+        disp = soft_argmin_fcs_cuda(cost)[0]
+        got, = torch.autograd.grad(disp, cost, g_out)
+        want = disp_mod.soft_argmin_fcs_backward(cost.detach(), disp.detach(), g_out)
+        torch.cuda.synchronize()
+        launched = soft_argmin_fcs_cuda.backward_launches - before
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        log(f"[autograd] soft-argmin backward kernel {shape}: max abs diff to "
+            f"soft_argmin_fcs_backward {err:.3g} (|grad| max {scale:.3g}); launches {launched}")
+        if err > 1e-5 * (1 + scale) or launched != 1:
+            raise AssertionError(f"soft-argmin backward {shape}: err {err}, launches {launched}")
+
+    # Times at the training shape.
+    g16 = rn(b, d, h, w, c).to(torch.bfloat16)
+    cost = rn(b, d, h, w) * 5
+    with torch.no_grad():
+        disp = soft_argmin_fcs_cuda(cost)[0]
+    g_disp = rn(b, h, w)
+    n_add = 2 * b * h * c * sum(w - i for i in range(min(d, w)))
+    for name, kernel_fn, plain_fn, nbytes, ops, label in (
+            ("difference_cost_volume", lambda: cv_mod._launch_backward(g16),
+             lambda: cv_mod.difference_cost_volume_backward(g16),
+             (n_add // 2 + 2 * b * h * w * c) * 2, n_add, f"({b},{d},{h},{w},{c}) bf16"),
+            ("soft_argmin_fcs", lambda: disp_mod._launch_backward(cost, disp, g_disp),
+             lambda: disp_mod.soft_argmin_fcs_backward(cost, disp, g_disp),
+             2 * cost.numel() * 4 + 2 * disp.numel() * 4, 6 * cost.numel(),
+             f"({b},{d},{h},{w}) f32")):
+        kern = time_ms(kernel_fn)
+        plain_kernels = len(launch_times(plain_fn))
+        plain = device_ms(plain_fn)
+        b_ms, b_by = bound(nbytes, ops, "f32_cuda_core")
+        log(f"[kernels] {name} backward {label}: kernel {kern}, one launch; plain version "
+            f"{plain:.4f} ms of device time over its {plain_kernels} kernels; bound {b_ms:.5f} "
+            f"ms ({b_by})")
+        row = next(r for r in rows if r["name"] == name)
+        row.update(backward_ms=kern.ms, backward_plain_ms=plain, backward_bound_ms=b_ms)
 
 
 @contextlib.contextmanager
@@ -977,6 +1151,13 @@ def training_phase(seed, dev, rows):
         return ss, times
 
     wrappers = [row["wrapper"] for row in rows]
+    # The wrappers whose backward is a kernel of their own, with its count.
+    backward = {row["name"]: row["wrapper"] for row in rows
+                if hasattr(row["wrapper"], "backward_launches")}
+
+    def counts():
+        return [(wr.launches, getattr(wr, "backward_launches", 0)) for wr in wrappers]
+
     results = {}
     for fused_tower in (True, False):
         model = build(fused_tower)
@@ -984,18 +1165,29 @@ def training_phase(seed, dev, rows):
         ss, warm = run(model, ss, WARMUP_STEPS)
         for wrapper in wrappers:
             wrapper.launches = 0
+        for wrapper in backward.values():
+            wrapper.backward_launches = 0
         ss, times = run(model, ss, STEPS)
         launches = {row["name"]: row["wrapper"].launches for row in rows}
+        bwd = {name: wr.backward_launches for name, wr in backward.items()}
         med = statistics.median(times)
         results[fused_tower] = (model, ss, med)
         log(f"[training] fused_tower={fused_tower}: {STEPS} adapt steps at {h}x{w} k={k} bf16 "
             f"(after {WARMUP_STEPS} warm-up steps, the first {warm[0]:.1f} ms): median "
             f"{med:.2f} ms/step ({1e3 / med:.2f} steps/s), min {min(times):.2f}, max "
             f"{max(times):.2f}; launches per step "
-            + ", ".join(f"{n}={c / STEPS:g}" for n, c in launches.items()))
+            + ", ".join(f"{n}={c / STEPS:g}" for n, c in launches.items())
+            + "; backward kernels per step "
+            + ", ".join(f"{n}={c / STEPS:g}" for n, c in bwd.items()))
+        if sorted(bwd) != ["difference_cost_volume", "soft_argmin_fcs"] or any(
+                c != STEPS for c in bwd.values()):
+            raise AssertionError(f"fused_tower={fused_tower}: the backward kernels of kernels 1 "
+                                 f"and 3 did not launch once a step: {bwd} over {STEPS} steps")
         if fused_tower:
             for row in rows:
                 row["train_launches"] = launches[row["name"]]
+                if row["name"] in bwd:
+                    row["backward_train_launches"] = bwd[row["name"]]
                 if row["name"].startswith("tower"):
                     row["launches"] = launches[row["name"]]
             missing = [n for n, c in launches.items() if (c == 0) != (n == "coarse_head")]
@@ -1066,12 +1258,12 @@ def training_phase(seed, dev, rows):
         return [torch.zeros_like(p) if t is None else t.float() for t, p in zip(gs, params)]
 
     def one_step(plain, frame, float32):
-        counts = [wr.launches for wr in wrappers]
+        before = counts()
         with plain_versions() if plain else contextlib.nullcontext():
             gs = loss_grads(fork(model, ss, float32)[0], frame)
             m_b, ss_b = fork(model, ss, float32)
             ss_b, _ = run(m_b, ss_b, 1, frame)
-        if plain and [wr.launches for wr in wrappers] != counts:
+        if plain and counts() != before:
             raise AssertionError("the plain-version step launched a kernel")
         row = ss_b.log[(int(ss_b.log_pos) - 1) % ss_b.log.shape[0]].cpu().numpy()
         return gs, [p.detach() for p in ss_b.params], row
@@ -1123,7 +1315,12 @@ def training_phase(seed, dev, rows):
 
     log("[profile] training, fused_tower=True")
     adapt = make_flat_streaming_steps(model, s, k, **options)[0]
-    profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=24, unit="step", host_top=10)
+    operators, launches = profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=24,
+                                            unit="step", host_top=10)
+    log(f"[training] kernel launches (cudaLaunchKernel) a step {launches:.0f} (before kernels 1 "
+        f"and 3 had backward kernels: {STEP_LAUNCHES_BEFORE}, "
+        f"{launches - STEP_LAUNCHES_BEFORE:+.0f}); host operators a step {operators:.0f} "
+        f"(before: {STEP_OPERATORS_BEFORE}, {operators - STEP_OPERATORS_BEFORE:+.0f})")
     log("[profile] training, fused_tower=False (yardstick)")
     m_y, ss_y, _ = results[False]
     adapt_y = make_flat_streaming_steps(m_y, s, k, **options)[0]
@@ -1152,6 +1349,7 @@ def main() -> int:
         soft_argmin_fcs_cuda,
         soft_argmin_fcs_ref,
     )
+    from adaptive_stereo_tpu_torch.ops.cuda import cost_volume as cv_mod
     from adaptive_stereo_tpu_torch.serving import (
         AsyncStereoDepthEngine, ServingConfig, StereoDepthEngine)
 
@@ -1188,16 +1386,30 @@ def main() -> int:
 
     rows = []
     with torch.inference_mode():
-        # Cost volume: bitwise equal in bf16 and f32.
+        floor = launch_floor()
+        # Cost volume: bitwise equal in bf16 and f32, at the serving and
+        # training shapes, at RAGGED and on a view off a 16-byte boundary.
         errs = {}
+        train_features = (TRAIN_COARSE[0], *TRAIN_COARSE[2:], c)
+        cases = [((1, h, w, c), num_disp, False), (train_features, TRAIN_COARSE[1], False),
+                 (*RAGGED, False), (*CV_ODD_C, False), ((1, h, w, c), num_disp, True)]
         for dt in (torch.float32, torch.bfloat16):
-            fl, fr = randn(1, h, w, c, dtype=dt), randn(1, h, w, c, dtype=dt)
-            got = difference_cost_volume_cuda(fl, fr, num_disp)
-            want = difference_cost_volume_ref(fl, fr, num_disp)
-            torch.cuda.synchronize()
-            errs[dt] = (got.float() - want.float()).abs().max().item()
-            if not torch.equal(got, want):
-                raise AssertionError(f"cost volume {dt}: not bitwise equal, max err {errs[dt]}")
+            for (fb, fh, fw, fc), fd, offset in cases:
+                fl, fr = randn(fb, fh, fw, fc, dtype=dt), randn(fb, fh, fw, fc, dtype=dt)
+                label = f"({fb},{fd},{fh},{fw},{fc}) {dt}"
+                if offset:  # f_l one element past a 16-byte boundary
+                    fl = torch.cat([fl.flatten()[:1], fl.flatten()])[1:].view(fl.shape)
+                    label += " off a 16-byte boundary"
+                got = difference_cost_volume_cuda(fl, fr, fd)
+                want = difference_cost_volume_ref(fl, fr, fd)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                errs.setdefault(dt, err)
+                log(f"[kernels] cost volume {label}, {cv_path(fc, fl, fr, got)} path: bitwise "
+                    f"equal {torch.equal(got, want)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"cost volume {label}: not bitwise equal, max err {err}")
+        fl, fr = randn(1, h, w, c, dtype=torch.bfloat16), randn(1, h, w, c, dtype=torch.bfloat16)
         n_sub = h * c * sum(w - d for d in range(min(num_disp, w)))
         rows.append(kernel_row(
             "difference_cost_volume", "cost_volume.cu", "cost_volume.py:66",
@@ -1205,7 +1417,7 @@ def main() -> int:
             lambda: difference_cost_volume_cuda(fl, fr, num_disp),
             lambda: difference_cost_volume_ref(fl, fr, num_disp), None,
             2 * fl.numel() * 2 + num_disp * fl.numel() * 2, n_sub, "f32_cuda_core",
-            f"(1,{num_disp},{h},{w},{c}) bf16, bitwise equal in f32 and bf16"))
+            f"(1,{num_disp},{h},{w},{c}) bf16, bitwise equal in f32 and bf16", floor))
 
         # Aggregation, eval and train mode, f32 and bf16, against the plain
         # version at the serving and training shapes and at CHECK_SHAPES.
@@ -1243,19 +1455,25 @@ def main() -> int:
             f"(1,{num_disp},{h},{w},{c}) bf16, 5 launches, {stack_ops / 1e9:.3f} GFLOP; "
             f"cuDNN stack max abs diff to plain {lib_err:.3g}"))
 
-        # Soft-argmin + FCS: within 1e-5 absolute.
+        # Soft-argmin + FCS: within 1e-5 absolute, at the serving shape (the
+        # error in the row), the training shape, RAGGED and SOFT_ARGMIN_D.
+        err = None
+        for shape in soft_argmin_shapes(num_disp, h, w):
+            scost = randn(*shape, scale=5.0)
+            disp, fcs = soft_argmin_fcs_cuda(scost)
+            disp_r, fcs_r = soft_argmin_fcs_ref(scost)
+            torch.cuda.synchronize()
+            e = max((disp - disp_r).abs().max().item(), (fcs - fcs_r).abs().max().item())
+            log(f"[kernels] soft-argmin + FCS {shape}: max abs err {e:.3g}")
+            if e > DISP_ABS:
+                raise AssertionError(f"soft-argmin+FCS {shape}: max abs err {e} > {DISP_ABS}")
+            err = e if err is None else err
         scost = randn(1, num_disp, h, w, scale=5.0)
-        disp, fcs = soft_argmin_fcs_cuda(scost)
-        disp_r, fcs_r = soft_argmin_fcs_ref(scost)
-        torch.cuda.synchronize()
-        err = max((disp - disp_r).abs().max().item(), (fcs - fcs_r).abs().max().item())
-        if err > DISP_ABS:
-            raise AssertionError(f"soft-argmin+FCS: max abs err {err} > {DISP_ABS}")
         rows.append(kernel_row(
             "soft_argmin_fcs", "disparity.cu", "disparity.py:64", soft_argmin_fcs_cuda, 1, err,
             lambda: soft_argmin_fcs_cuda(scost), lambda: soft_argmin_fcs_ref(scost), None,
             scost.numel() * 4 + 2 * h * w * 4, 8 * scost.numel(), "f32_cuda_core",
-            f"(1,{num_disp},{h},{w}) f32, max abs err {err:.3g}"))
+            f"(1,{num_disp},{h},{w}) f32, max abs err {err:.3g}", floor))
 
         # Fused coarse head, eval and train, f32 and bf16, against the plain
         # version and against kernels 1-3 composed, at the serving and
@@ -1358,14 +1576,17 @@ def main() -> int:
 
     # Phase 7: the tower kernels; phase 8: autograd of kernels 1-3.
     tower_phase(model_cpu, dev, args.seed, rows)
-    autograd_phase(params, run_stats, dev, args.seed)
+    autograd_phase(params, run_stats, dev, args.seed, rows)
 
     # Phase 9: training.
     training_phase(args.seed, dev, rows)
 
-    table = [{key: row[key] for key in ("name", "route", "source", "replaces", "launches",
-                                        "train_launches", "max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms")} for row in rows]
+    keys = ("name", "route", "source", "replaces", "launches", "train_launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
+            "backward_plain_ms", "backward_bound_ms", "backward_train_launches")
+    for row in rows:
+        row["floor_ms"] = floor.ms
+    table = [{key: row[key] for key in keys if key in row} for row in rows]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

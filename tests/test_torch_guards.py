@@ -122,6 +122,19 @@ def test_library_name_follows_the_headers(monkeypatch, tmp_path):
     assert _build.ptxas_report_path() == after.parent / (after.stem + ".ptxas.txt")
 
 
+@pytest.mark.parametrize("source", ["cost_volume.cu", "disparity.cu", "soft_argmin_fcs.cuh",
+                                    "common.cuh"])
+def test_library_name_follows_every_kernel_source(monkeypatch, tmp_path, source):
+    """An edit to the sources of kernels 1 and 3 (forward and backward) or
+    to the helpers they share renames the library."""
+    src = tmp_path / "csrc"
+    shutil.copytree(PORT / "csrc", src)
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    before = _build.library_path()
+    (src / source).write_text((src / source).read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
 def test_every_c_entry_point_has_argtypes():
     """Every extern "C" function in csrc has a ctypes signature, with one
     argument per C parameter (pointers and the stream as c_void_p)."""
@@ -132,6 +145,10 @@ def test_every_c_entry_point_has_argtypes():
         for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
             found[name] = [a.strip() for a in args.split(",")]
     assert set(found) == set(_build._SIGNATURES)
+    # The backward kernels of kernels 1 and 3 and the empty kernel that
+    # chip_smoke.py times as the launch floor.
+    assert {"stereo_cost_volume_backward", "stereo_soft_argmin_backward",
+            "stereo_noop"} <= set(found)
     for name, args in found.items():
         sig = _build._SIGNATURES[name]
         assert len(sig) == len(args), name

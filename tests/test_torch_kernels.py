@@ -16,12 +16,13 @@ functions of the aggregated cost), batch mu/var 1e-4 relative + 1e-5
 absolute (float32 means over B*D*H*W in different orders).
 
 Backward of kernels 1-4: on the card each wrapper is a
-torch.autograd.Function whose backward is plain PyTorch. These tests drive
-those Functions on the CPU, with the kernel launch replaced by the plain
-forward, and hold the gradients against jax.vjp of the Pallas functions:
-the cost volume bitwise (sums of the same float32 terms in the same order),
-soft-argmin 1e-5 absolute and relative, aggregation and the fused coarse
-head the aggregation band.
+torch.autograd.Function whose backward is a kernel of its own (kernels 1
+and 3) or plain PyTorch (kernels 2 and 4); on CPU tensors it takes the
+plain backward. These tests drive those Functions on the CPU, with the
+kernel launch replaced by the plain forward, and hold the gradients
+against jax.vjp of the Pallas functions: the cost volume bitwise (sums of
+the same float32 terms in the same order), soft-argmin 1e-5 absolute and
+relative, aggregation and the fused coarse head the aggregation band.
 
 The row tiles of kernels 2 and 4 (aggregation.tile_plan) are checked here
 too, and what the wrappers hand the C entry points, through a stand-in for
@@ -191,12 +192,22 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     never falls back to the plain version, and counts no launch."""
     wrappers = (difference_cost_volume_cuda, aggregate_cost_volume_cuda, soft_argmin_fcs_cuda,
                 coarse_head_cuda)
-    before = [w.launches for w in wrappers]
+
+    def counts():
+        return [(w.launches, getattr(w, "backward_launches", None)) for w in wrappers]
+
+    before = counts()
     f = torch.empty(1, 4, 8, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         difference_cost_volume_cuda(f, f, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        soft_argmin_fcs_cuda(torch.empty(1, 12, 4, 8, device="meta"))
+        cv_mod._launch_backward(torch.empty(1, 4, 4, 8, 32, device="meta"))
+    cost = torch.empty(1, 12, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        soft_argmin_fcs_cuda(cost)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        disp_mod._launch_backward(cost, torch.empty(1, 4, 8, device="meta"),
+                                  torch.empty(1, 4, 8, device="meta"))
     _, params, stats = _agg_inputs(np.random.RandomState(0), 1, 1, 1, 1)
     for train in (False, True):
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -212,10 +223,11 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA tensor"):
             tower_cuda(torch.empty(1, 8, 16, 4, device="meta"), tower,
                        (torch.zeros(7, 32), torch.ones(7, 32)), train)
-    assert [w.launches for w in wrappers] == before
+    assert counts() == before
 
 
-@pytest.mark.parametrize("b,h,w,c,d", [(1, 4, 12, 8, 5), (2, 3, 6, 4, 8)])
+# (1, 2, 3, 8, 5): D > W with C * 4 = 32 bytes, every slice from d = 3 on zero.
+@pytest.mark.parametrize("b,h,w,c,d", [(1, 4, 12, 8, 5), (2, 3, 6, 4, 8), (1, 2, 3, 8, 5)])
 def test_cost_volume_backward_matches_pallas_vjp(monkeypatch, b, h, w, c, d):
     rng = np.random.RandomState(w)
     fl, fr = (rng.randn(b, h, w, c).astype(np.float32) for _ in range(2))
@@ -226,10 +238,13 @@ def test_cost_volume_backward_matches_pallas_vjp(monkeypatch, b, h, w, c, d):
     monkeypatch.setattr(cv_mod, "_launch", lambda x, y, n: cv_mod.difference_cost_volume_ref(
         x.detach(), y.detach(), n))
     tl, tr = (torch.from_numpy(x).requires_grad_() for x in (fl, fr))
+    before = difference_cost_volume_cuda.backward_launches
     out = cv_mod._CostVolume.apply(tl, tr, d)
     out.backward(torch.from_numpy(g))
     np.testing.assert_array_equal(tl.grad.numpy(), np.asarray(ref[0]))
     np.testing.assert_array_equal(tr.grad.numpy(), np.asarray(ref[1]))
+    # CPU tensors take the plain backward: no kernel launch is counted.
+    assert difference_cost_volume_cuda.backward_launches == before
 
 
 def test_soft_argmin_backward_matches_pallas_vjp(monkeypatch):
@@ -442,3 +457,87 @@ def test_aggregation_refuses_a_cost_off_a_16_byte_boundary(fake_library):
         agg_mod._launch(shifted, _torch(params), tuple(map(torch.from_numpy, stats)), False,
                         1e-5)
     assert lib.calls == []
+
+
+def _offset_view(t):
+    """t's values in a view whose data starts one element past the
+    allocation, so off a 16-byte boundary."""
+    flat = torch.cat([t.flatten()[:1], t.flatten()])
+    view = flat[1:].view(t.shape)
+    assert view.data_ptr() % 16
+    return view
+
+
+# (dtype, C, offset view, 16-byte path): C * itemsize a multiple of 16 and
+# aligned data take the 16-byte path; C = 4 in bf16 (8 bytes), C = 3 in f32
+# and a view off a 16-byte boundary take the scalar path.
+CV_PATHS = [(torch.float32, 4, False, True), (torch.bfloat16, 4, False, False),
+            (torch.bfloat16, 32, False, True), (torch.bfloat16, 32, True, False),
+            (torch.float32, 3, False, False), (torch.float32, 8, True, False)]
+
+
+def _takes_16_byte_path(args, itemsize):
+    """The path the cost-volume entry points take for these arguments
+    (csrc/cost_volume.cu, vec_ok): C * itemsize a multiple of 16 and the
+    three pointers on 16-byte boundaries."""
+    return args[6] * itemsize % 16 == 0 and all(p % 16 == 0 for p in args[:3])
+
+
+@pytest.mark.parametrize("dtype,c,offset,vec", CV_PATHS)
+def test_cost_volume_forward_hands_the_kernel_its_path(fake_library, dtype, c, offset, vec):
+    lib, _ = fake_library
+    b, h, w, d = 2, 3, 7, 9
+    fl, fr = torch.zeros(b, h, w, c, dtype=dtype), torch.ones(b, h, w, c, dtype=dtype)
+    if offset:
+        fl = _offset_view(fl)
+    before = difference_cost_volume_cuda.launches
+    out = cv_mod._launch(fl, fr, d)
+    (name, args), = lib.calls
+    assert name == "stereo_cost_volume_forward"
+    assert args[:3] == (fl.data_ptr(), fr.data_ptr(), out.data_ptr())
+    assert args[3:9] == (b, h, w, c, d, _build.DTYPE_CODES[dtype])
+    assert _takes_16_byte_path(args, dtype.itemsize) == vec
+    assert out.shape == (b, d, h, w, c) and out.dtype == dtype
+    assert difference_cost_volume_cuda.launches - before == 1
+
+
+@pytest.mark.parametrize("dtype,c,offset,vec", CV_PATHS)
+def test_cost_volume_backward_hands_the_kernel_its_path(fake_library, dtype, c, offset, vec):
+    lib, _ = fake_library
+    b, h, w, d = 2, 3, 7, 9
+    g = torch.zeros(b, d, h, w, c, dtype=dtype)
+    if offset:
+        g = _offset_view(g)
+    before = (difference_cost_volume_cuda.launches, difference_cost_volume_cuda.backward_launches)
+    d_fl, d_fr = cv_mod._launch_backward(g)
+    (name, args), = lib.calls
+    assert name == "stereo_cost_volume_backward"
+    assert args[:3] == (g.data_ptr(), d_fl.data_ptr(), d_fr.data_ptr())
+    assert args[3:9] == (b, h, w, c, d, _build.DTYPE_CODES[dtype])
+    assert _takes_16_byte_path(args, dtype.itemsize) == vec
+    for t in (d_fl, d_fr):
+        assert t.shape == (b, h, w, c) and t.dtype == dtype
+    assert (difference_cost_volume_cuda.launches,
+            difference_cost_volume_cuda.backward_launches - 1) == before
+
+
+@pytest.mark.parametrize("b,d,h,w", [(1, 12, 20, 76), (2, 12, 20, 60), (2, 40, 5, 7)])
+def test_soft_argmin_hands_the_kernels_their_arguments(fake_library, b, d, h, w):
+    """The forward and the backward each make one call with the pointers
+    and (B, D, H * W); the forward counts in launches, the backward in
+    backward_launches."""
+    lib, _ = fake_library
+    cost = torch.zeros(b, d, h, w)
+    before = (soft_argmin_fcs_cuda.launches, soft_argmin_fcs_cuda.backward_launches)
+    disp, fcs = disp_mod._launch(cost)
+    g = torch.ones(b, h, w)
+    g_cost = disp_mod._launch_backward(cost, disp, g)
+    (fwd, fargs), (bwd, bargs) = lib.calls
+    assert fwd == "stereo_soft_argmin_fcs_forward" and bwd == "stereo_soft_argmin_backward"
+    assert fargs[:6] == (cost.data_ptr(), disp.data_ptr(), fcs.data_ptr(), b, d, h * w)
+    assert bargs[:7] == (cost.data_ptr(), disp.data_ptr(), g.data_ptr(), g_cost.data_ptr(), b, d,
+                         h * w)
+    assert disp.shape == fcs.shape == (b, h, w) and g_cost.shape == (b, d, h, w)
+    assert g_cost.dtype == disp.dtype == torch.float32
+    assert (soft_argmin_fcs_cuda.launches - 1, soft_argmin_fcs_cuda.backward_launches - 1) == before
+
