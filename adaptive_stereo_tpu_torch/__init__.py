@@ -13,7 +13,11 @@ Layout (mirrors adaptive_stereo_tpu/):
                each with its plain PyTorch version beside it
   models/      StereoNet as nn.Modules with the reference state-dict keys
   serving/     stream-ingest depth engine (eval forward -> depth -> cloud)
-  engine/      online adaptation (adapt / done / validate steps, reservoir)
+  engine/      online adaptation (adapt / done / validate steps, reservoir,
+               the streaming driver, eval, config, checkpoints)
+  data/        datasets, loaders, PNG / PFM IO, the synthetic generator
+  utils/       console banners, run provenance, trials.csv
+  cli.py       `python -m adaptive_stereo_tpu_torch.cli adapt --engine flat`
 
 Entry points run on "cuda" unless the caller passes device="cpu"; asking for
 CUDA on a machine without it raises.

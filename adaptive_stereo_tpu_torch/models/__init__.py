@@ -11,7 +11,7 @@ from .stereo_net import (
     random_init_,
     resize_bilinear,
 )
-from .weights import load_reference_folder, state_dicts_from_jax
+from .weights import load_reference_folder, state_dicts_from_jax, variables_from_state_dicts
 
 __all__ = [
     "BasicBlock",
@@ -27,4 +27,5 @@ __all__ = [
     "random_init_",
     "resize_bilinear",
     "state_dicts_from_jax",
+    "variables_from_state_dicts",
 ]

@@ -1,4 +1,4 @@
-"""Weights carried across: JAX variables -> the port's state dicts, and the
+"""Weights carried across: JAX variables <-> the port's state dicts, and the
 reference's .pth pair.
 
 Counterpart of adaptive_stereo_tpu/models/torch_import.py
@@ -10,6 +10,9 @@ an own copy). Layout conversions:
   running_mean/running_var.
 The dead BasicBlock conv2 tensors (never applied by the reference forward)
 are zero-filled with an identity BatchNorm, so strict loading works.
+variables_from_state_dicts is the inverse (the conv2 tensors have no JAX
+counterpart and are dropped), which lets the port write the JAX package's
+checkpoint container (engine/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -102,6 +105,62 @@ def state_dicts_from_jax(variables: dict, k: int) -> Tuple[StateDict, StateDict]
     return (feature_net_state_dict_from_jax(params["feature_net"],
                                             stats["feature_net"], k),
             stereo_net_state_dict_from_jax(params["stereo_net"], stats["stereo_net"]))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _get_conv(sd: StateDict, prefix: str, perm) -> dict:
+    return {"kernel": np.transpose(_np(sd[f"{prefix}.weight"]), perm),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+_CONV2D_TO_JAX = (2, 3, 1, 0)     # (O, I, kh, kw) -> (kh, kw, I, O)
+_CONV3D_TO_JAX = (2, 3, 4, 1, 0)  # (O, I, kd, kh, kw) -> (kd, kh, kw, I, O)
+
+
+def _get_convbn(sd: StateDict, conv: str, bn: str, perm=_CONV2D_TO_JAX):
+    """(params, batch_stats) of a conv + BatchNorm pair."""
+    params = {"conv": _get_conv(sd, conv, perm),
+              "bn": {"scale": _np(sd[f"{bn}.weight"]), "bias": _np(sd[f"{bn}.bias"])}}
+    return params, {"bn": {"mean": _np(sd[f"{bn}.running_mean"]),
+                           "var": _np(sd[f"{bn}.running_var"])}}
+
+
+def _get_basic_block(sd: StateDict, prefix: str):
+    p, st = _get_convbn(sd, f"{prefix}.conv1.0.0", f"{prefix}.conv1.0.1")
+    return {"conv1": p}, {"conv1": st}
+
+
+def variables_from_state_dicts(feature_sd: StateDict, stereo_sd: StateDict, k: int) -> dict:
+    """JAX StereoModel variables {'params': ..., 'batch_stats': ...}, nested
+    dicts of float32 numpy arrays, from the port's (feature_net,
+    stereo_net) state dicts: the inverse of state_dicts_from_jax."""
+    fp, fs = {}, {}
+    for i in range(k):
+        fp[f"downsample_{i}"] = _get_conv(feature_sd, f"downsample.{i}", _CONV2D_TO_JAX)
+    for i in range(6):
+        fp[f"residual_{i}"], fs[f"residual_{i}"] = _get_basic_block(
+            feature_sd, f"residual_blocks.{i}")
+    fp["conv_alone"] = _get_conv(feature_sd, "conv_alone", _CONV2D_TO_JAX)
+
+    sp, ss = {}, {}
+    for i in range(4):
+        sp[f"filter_{i}"], ss[f"filter_{i}"] = _get_convbn(
+            stereo_sd, f"filter.{i}.0.0", f"filter.{i}.0.1", _CONV3D_TO_JAX)
+    sp["conv3d_alone"] = _get_conv(stereo_sd, "conv3d_alone", _CONV3D_TO_JAX)
+    ref = "edge_aware_refinements.0"
+    rp, rs = {}, {}
+    rp["conv2d_feature"], rs["conv2d_feature"] = _get_convbn(
+        stereo_sd, f"{ref}.conv2d_feature.0.0", f"{ref}.conv2d_feature.0.1")
+    for i in range(6):
+        rp[f"astrous_{i}"], rs[f"astrous_{i}"] = _get_basic_block(
+            stereo_sd, f"{ref}.residual_astrous_blocks.{i}")
+    rp["conv2d_out"] = _get_conv(stereo_sd, f"{ref}.conv2d_out", _CONV2D_TO_JAX)
+    sp["refinement_0"], ss["refinement_0"] = rp, rs
+    return {"params": {"feature_net": fp, "stereo_net": sp},
+            "batch_stats": {"feature_net": fs, "stereo_net": ss}}
 
 
 def load_reference_folder(path: str) -> Tuple[StateDict, StateDict]:

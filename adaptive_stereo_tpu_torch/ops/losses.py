@@ -12,13 +12,17 @@ numerics (adaptive_stereo/utils/loss_functions.py):
   disparity normalised by its mean in the smoothness term.
 - monodepth_single_loss (adapt.py:78-86): the single-sided loss, a masked
   mean sum(l*m) / max(sum(m), 1) over the warp's validity mask.
+- monodepth_leftright_loss (:141-190): the left-right consistency loss. The
+  reference's version is dead code (it clobbers its input at :154); like
+  the JAX package, the port computes its evident intent: occlusion-masked
+  photometric losses of both views plus a disparity consistency term.
 
 All functions take (B, H, W, C) tensors; disparities are (B, H, W, 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,3 +92,38 @@ def monodepth_single_loss(left_img: torch.Tensor, right_img: torch.Tensor,
     l_total = monodepth_loss(pred_disp_l, left_img, left_warped, smoothness_weight)[0]
     m = mask.to(l_total.dtype)
     return (l_total * m).sum() / torch.clamp(m.sum(), min=1.0), left_warped
+
+
+def monodepth_leftright_loss(left_img: torch.Tensor, right_img: torch.Tensor,
+                             pred_disp_l: torch.Tensor, pred_disp_r: torch.Tensor,
+                             smoothness_weight: float = 1e-3, consistency_weight: float = 1e-3,
+                             max_disp: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Left-right consistency Monodepth loss (JAX ops/losses.py:172-224).
+    Occlusion masks: occ = pred_disp >= 0.95 * the cross-warped disparity;
+    the masks carry no gradient. Returns (scalar loss, dict of the masked
+    warped views)."""
+    warped_disp_l, _ = linear_warp(pred_disp_r, pred_disp_l, right_to_left=True,
+                                   max_disp=max_disp)
+    warped_disp_r, _ = linear_warp(pred_disp_l, pred_disp_r, right_to_left=False,
+                                   max_disp=max_disp)
+    occ_mask_l = pred_disp_l >= 0.95 * warped_disp_l
+    occ_mask_r = pred_disp_r >= 0.95 * warped_disp_r
+    left_warped, left_mask = linear_warp(right_img, pred_disp_l, right_to_left=True,
+                                         max_disp=max_disp)
+    right_warped, right_mask = linear_warp(left_img, pred_disp_r, right_to_left=False,
+                                           max_disp=max_disp)
+    mask_l = (occ_mask_l & left_mask).to(left_img.dtype).detach()
+    mask_r = (occ_mask_r & right_mask).to(left_img.dtype).detach()
+
+    l_left = monodepth_loss(pred_disp_l, left_img, left_warped, smoothness_weight)[0]
+    l_right = monodepth_loss(pred_disp_r, right_img, right_warped, smoothness_weight)[0]
+
+    def masked_mean(x, m):
+        return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+    l_consistency = ((mask_l * torch.abs(pred_disp_l - warped_disp_l)).mean()
+                     + (mask_r * torch.abs(pred_disp_r - warped_disp_r)).mean())
+    total = (masked_mean(l_left, mask_l) + masked_mean(l_right, mask_r)
+             + consistency_weight * l_consistency)
+    return total, {"left_warped": left_warped * mask_l, "right_warped": right_warped * mask_r}

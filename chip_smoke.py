@@ -70,6 +70,30 @@ Phases, in order; any failure raises and the script exits non-zero:
               step on another frame); device time by kernel over a few steps;
               every adapt step launches the backward kernels of kernels 1
               and 3 exactly once each; launches and host operators a step
+ 10. driver   the streaming adaptation driver (engine/stream_driver.py,
+              adapt --engine flat) on synthetic datasets written by the
+              port's generator at 320x960 (two spawned processes write them
+              while phases 3-9 run) from seeded random weights saved with
+              save_variables; first the host's decode time of one frame's
+              PNG. Run A at bench.py's step settings (k=4, bf16, fused
+              siamese, the tower, VS+ER, fused ER forward, uint8 frames,
+              done_batch 4, lr 5e-5, clip) with all four guard channels
+              over two epochs; the saved stream state of its last step
+              loads bit for bit (the reservoir's generator included) and a
+              run resumed from its middle checkpoint reaches the same step
+              count; run B with the left-right loss (the batch-3 forward);
+              then `adapt --engine flat` through cli.main. Fails unless
+              runs A, resumed A and B each launched kernels 1, 2, 3 and 5
+              and the backward kernels of 1 and 3 and never kernel 4, and
+              the command line's run launched kernels 1, 2 and 3 and the
+              two backward kernels and neither kernel 4 nor 5 (its parser,
+              like the JAX package's, has no flag for s2d_refinement, so
+              it takes the refinement module path); an adapt step, a
+              batched done step and a validation ran, the ring log is
+              finite and trials.csv has its rows. Prints steps/s and the
+              median interval between adapt steps inside the driver beside
+              phase 9's bare step (the driver's own host overhead), with
+              its parts on the loop's thread
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
@@ -91,7 +115,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -132,6 +158,10 @@ FRAMES = 8  # served frames in phase 4, by each engine
 STEPS = 20  # timed adapt steps in phase 9, after WARMUP_STEPS
 WARMUP_STEPS = 3
 LR = 5e-5
+# Phase 10: the synthetic datasets of the driver's runs (train, val frames).
+DRIVER_SHAPE = (320, 960)
+DRIVER_FRAMES = (12, 2)  # novel-domain stream (domain_shift=True)
+REPLAY_FRAMES = (4, 2)   # training-domain replay and train-val set
 # Tower, f32 (phase 7): outputs and buffers within 1e-3 + 1e-4 |ref|, mu/var
 # within 1e-4 + 1e-4 |ref| (float32 sums in other orders; 1.3e-4 was
 # measured on an H100 at |ref| = 93). bf16: the kernel chain's error against
@@ -1213,7 +1243,7 @@ def training_phase(seed, dev, rows):
         f"{results[False][2]:.2f} ms/step")
 
     # done and validate steps (eval mode, the tower in eval mode).
-    _, done, validate = make_flat_streaming_steps(model, s, k, **options)
+    _, done, validate, _ = make_flat_streaming_steps(model, s, k, **options)
     ss = done(ss, left, right, gt, 1)
     ss, avg, size, mean_disp = validate(ss)
     torch.cuda.synchronize()
@@ -1325,6 +1355,301 @@ def training_phase(seed, dev, rows):
     m_y, ss_y, _ = results[False]
     adapt_y = make_flat_streaming_steps(m_y, s, k, **options)[0]
     profile_breakdown(lambda: adapt_y(ss_y, *batch), repeats=3, top=8, unit="step", host_top=5)
+    return med
+
+
+def generate_driver_data(root: str, seed: int):
+    """Start generating phase 10's datasets in two spawned processes (the
+    numpy generator takes about half a second a 320x960 frame), so they are
+    written while phases 3-9 run. Returns (pool, futures)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from adaptive_stereo_tpu_torch.data import generate_synthetic_dataset
+
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    h, w = DRIVER_SHAPE
+    futures = [
+        pool.submit(generate_synthetic_dataset, f"{root}/novel", name="synth",
+                    num_train=DRIVER_FRAMES[0], num_val=DRIVER_FRAMES[1], height=h, width=w,
+                    max_disp=40.0, seed=seed + 50, domain_shift=True),
+        pool.submit(generate_synthetic_dataset, f"{root}/train", name="synth",
+                    num_train=REPLAY_FRAMES[0], num_val=REPLAY_FRAMES[1], height=h, width=w,
+                    max_disp=40.0, seed=seed)]
+    return pool, futures
+
+
+
+def driver_phase(seed, dev, rows, card, bare_ms, root, data):
+    """Phase 10: the streaming adaptation driver (adapt --engine flat)."""
+    import csv
+    import os
+
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+    from adaptive_stereo_tpu_torch import cli
+    from adaptive_stereo_tpu_torch.data import decode_png
+    from adaptive_stereo_tpu_torch.engine import (LOG_COLS, AdaptConfig, DataConfig,
+                                                  ExperimentConfig, ModelConfig, OptimConfig,
+                                                  init_flat_stream_state,
+                                                  load_stream_checkpoint, save_variables)
+    from adaptive_stereo_tpu_torch.models import (StereoModel, random_init_,
+                                                  variables_from_state_dicts)
+
+    pool, futures = data
+    t_phase = t0 = time.perf_counter()
+    for future in futures:
+        future.result()
+    pool.shutdown()
+    log(f"[driver] datasets ready (waited {time.perf_counter() - t0:.1f} s): novel domain "
+        f"{DRIVER_FRAMES[0]} + {DRIVER_FRAMES[1]} frames, training domain {REPLAY_FRAMES[0]} + "
+        f"{REPLAY_FRAMES[1]}, {DRIVER_SHAPE[0]}x{DRIVER_SHAPE[1]}")
+    k, h, w = 4, *DRIVER_SHAPE
+    # The host's cost of one frame's PNG: the generator picks each row's
+    # filter as libpng and PIL do (mostly paeth on these images).
+    left = os.path.join(root, "novel", "left")
+    with open(os.path.join(left, sorted(os.listdir(left))[0]), "rb") as f:
+        frame_png = f.read()
+    decode_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_png(frame_png)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    start = frame_png.index(b"IDAT") + 4
+    filtered = np.frombuffer(zlib.decompressobj().decompress(frame_png[start:]), np.uint8)
+    kinds = np.bincount(filtered.reshape(h, -1)[:, 0], minlength=5)
+    log(f"[driver] decode_png of one {h}x{w} RGB frame on the host: median "
+        f"{statistics.median(decode_ms):.2f} ms of 5; rows by filter type 0-4: "
+        f"{kinds.tolist()}")
+    cpu_model = random_init_(StereoModel(k=k, input_scale=0, device="cpu"),
+                             torch.Generator().manual_seed(seed + 10))
+    weights = os.path.join(root, "weights")
+    save_variables(weights, variables_from_state_dicts(
+        cpu_model.feature_net.state_dict(), cpu_model.stereo_net.state_dict(), k))
+    novel, train = os.path.join(root, "novel"), os.path.join(root, "train")
+
+    def config(name, num_epochs, **adapt):
+        base = dict(adapt_mode="VS+ER", ood_threshold=1e9, train_dataset_path=train,
+                    train_dataset_name="Synthetic", train_split="synth")
+        base.update(adapt)
+        return ExperimentConfig(
+            model_name=name, log_dir=os.path.join(root, "logs"), num_epochs=num_epochs,
+            log_frequency=4, load_weights_folder=weights,
+            model=ModelConfig(k=k, input_scale=0, compute_dtype="bfloat16",
+                              fused_siamese=True, s2d_refinement=True),
+            optim=OptimConfig(learning_rate=LR, clip_grad_norm=True),
+            data=DataConfig(dataset_path=novel, dataset_name="Synthetic", split="synth",
+                            height=h, width=w, batch_size=1, num_workers=4),
+            adapt=AdaptConfig(**base))
+
+    # Count the driver's step calls, and time on the host clock (the driver
+    # runs ahead of the card between its drains) what its loop's thread does
+    # between two adapt steps: the adapt call itself, the wait for the
+    # loader's next batch, the wait for the replay frame (read a step ahead
+    # on a worker thread) and the rest (uploads, uint8 frames, drains).
+    calls = {"adapt": [], "adapt_ms": [], "parts": [], "done": 0, "done_batched": 0,
+             "validate": 0}
+    waits = {"loader": 0.0, "replay": 0.0}
+    make_steps, replay_item, loader_iter = (sd.make_flat_streaming_steps,
+                                            sd._ReplayPrefetch.item, sd.BatchLoader.__iter__)
+
+    def timed_replay_item(self, step):
+        t = time.perf_counter()
+        item = replay_item(self, step)
+        waits["replay"] += time.perf_counter() - t
+        return item
+
+    def timed_loader_iter(self):
+        batches = loader_iter(self)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            waits["loader"] += time.perf_counter() - t
+            yield batch
+
+    def counted_steps(*a, **kw):
+        adapt, done, validate, make_batched = make_steps(*a, **kw)
+
+        def adapt_c(*args):
+            t = time.perf_counter()
+            calls["adapt"].append(t)
+            calls["parts"].append(dict(waits))
+            waits.update(loader=0.0, replay=0.0)
+            out = adapt(*args)
+            calls["adapt_ms"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def done_c(*args):
+            calls["done"] += 1
+            return done(*args)
+
+        def validate_c(ss):
+            calls["validate"] += 1
+            return validate(ss)
+
+        def make_batched_c(n):
+            batched = make_batched(n)
+
+            def batched_c(*args):
+                calls["done_batched"] += 1
+                return batched(*args)
+            return batched_c
+        return adapt_c, done_c, validate_c, make_batched_c
+
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+
+    def reset():
+        calls.update(adapt=[], adapt_ms=[], parts=[], done=0, done_batched=0, validate=0)
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def check_launches(label, absent=("coarse_head",)):
+        """Fail unless every kernel launched in this run but those absent."""
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        log(f"[driver] {label}: kernel launches " + ", ".join(f"{n}={c}" for n, c in got.items()))
+        missing = [n for n, c in got.items() if (c == 0) != (n in absent)]
+        if missing:
+            raise AssertionError(f"{label}: launch counts of the driver's path: {got}")
+
+    def check_run(label, result, n_rows):
+        ss = result["stream_state"]
+        log_rows = ss.log[:int(ss.log_pos)].cpu().numpy()
+        cols = {c: i for i, c in enumerate(LOG_COLS)}
+        if len(log_rows) != n_rows or not np.isfinite(log_rows).all():
+            raise AssertionError(f"{label}: the ring log has {len(log_rows)} rows (want "
+                                 f"{n_rows}) or non-finite values")
+        adapt_rows = int((log_rows[:, cols["replay_loss"]] != 0).sum())
+        log(f"[driver] {label}: {result['steps']} steps, {result['steps_per_sec']:.2f} steps/s, "
+            f"{result['gradient_updates']} gradient updates, {result['guard_rollbacks']} "
+            f"rollbacks, final state {result['final_state']}; ring log: {adapt_rows} adapt rows, "
+            f"{len(log_rows) - adapt_rows} done rows, did_add "
+            f"{int(log_rows[:, cols['did_add']].sum())}; calls: {len(calls['adapt'])} adapt, "
+            f"{calls['done']} done, {calls['done_batched']} batched done, {calls['validate']} "
+            f"validate")
+        if not (adapt_rows and len(calls["adapt"]) and calls["validate"]):
+            raise AssertionError(f"{label}: no adapt step or no validation ran")
+        return log_rows
+
+    sd.make_flat_streaming_steps = counted_steps
+    sd._ReplayPrefetch.item = timed_replay_item
+    sd.BatchLoader.__iter__ = timed_loader_iter
+    try:
+        # Run A: bench.py's step settings through the driver, two epochs.
+        reset()
+        guard = dict(ovs_guard_tolerance=0.5, ovs_guard_disp_band=4.0,
+                     ovs_guard_train_epe_factor=3.0, ovs_guard_lr_factor=3.0)
+        cfg_a = config("run_a", 2, ovs_buffer_size=DRIVER_FRAMES[0], ovs_validate_hz=4,
+                       val_improve_retries=1, eval_hz=DRIVER_FRAMES[0], **guard)
+        options = dict(transfer_uint8=True, fused_er_forward=True, done_batch=4)
+        t0 = time.perf_counter()
+        result = sd.adapt_streaming(cfg_a, device=dev, **options)
+        wall = time.perf_counter() - t0
+        steps = 2 * DRIVER_FRAMES[0]
+        if result["steps"] != steps:
+            raise AssertionError(f"run A took {result['steps']} steps, want {steps}")
+        check_launches("run A")
+        check_run("run A", result, steps)
+        if not calls["done_batched"]:
+            raise AssertionError("run A: the machine never reached DONE, so no batched done "
+                                 "step ran")
+        starts = calls["adapt"]
+        gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        driver_ms = statistics.median(gaps)
+        log(f"[driver] run A: {wall:.1f} s wall; median interval between adapt-step calls inside "
+            f"the driver {driver_ms:.2f} ms against phase 9's bare step {bare_ms:.2f} ms "
+            f"(x{driver_ms / bare_ms:.2f}; the driver's own host overhead "
+            f"{driver_ms - bare_ms:+.2f} ms a step); {card}")
+        parts = {"adapt call": calls["adapt_ms"][:-1],
+                 "loader wait": [p["loader"] * 1e3 for p in calls["parts"][1:]],
+                 "replay frame wait": [p["replay"] * 1e3 for p in calls["parts"][1:]]}
+        parts["rest"] = [g - sum(v[i] for v in parts.values()) for i, g in enumerate(gaps)]
+        log("[driver] run A, the interval between adapt steps on the loop's thread, median ms: "
+            + ", ".join(f"{name} {statistics.median(v):.2f}" for name, v in parts.items()))
+        with open(os.path.join(root, "logs", "run_a", "trials.csv"), newline="") as f:
+            trials = list(csv.reader(f))
+        if len(trials) != 1 + 3:
+            raise AssertionError(f"trials.csv has {len(trials) - 1} rows, want 3")
+        log(f"[driver] trials.csv: {trials[0]}; " + "; ".join(",".join(r[:3]) for r in trials[1:]))
+
+        # The saved stream state loads bit for bit; a resumed run reaches the
+        # same step count.
+        ckpt = os.path.join(root, "logs", "run_a", "models", f"weights_{steps}")
+        model = StereoModel(k=k, input_scale=0, dtype=torch.bfloat16, device=dev,
+                            fused_siamese=True, fused_tower=True)
+        fresh = init_flat_stream_state(model, LR, DRIVER_FRAMES[0], h, w, 512, seed=123,
+                                       device=dev)
+        fresh, host, *_ = load_stream_checkpoint(ckpt, fresh)
+        a = result["stream_state"]
+        same = all(torch.equal(x, y) for f in ("params", "m", "v", "buffers")
+                   for x, y in zip(getattr(fresh, f), getattr(a, f)))
+        same &= all(torch.equal(getattr(fresh, f), getattr(a, f))
+                    for f in ("count", "lr", "ema_value", "ema_init", "log", "log_pos"))
+        same &= all(torch.equal(getattr(fresh.reservoir, f), getattr(a.reservoir, f))
+                    for f in ("left", "right", "values", "reg_indices", "size", "count"))
+        same &= torch.equal(fresh.reservoir.generator.get_state(),
+                            a.reservoir.generator.get_state())
+        if not same or host["step"] != steps:
+            raise AssertionError("the saved stream state does not load bit for bit")
+        reset()
+        resumed = sd.adapt_streaming(cfg_a, resume_from=os.path.join(
+            root, "logs", "run_a", "models", f"weights_{DRIVER_FRAMES[0]}"), device=dev,
+            **options)
+        drift = max((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(resumed["stream_state"].params, a.params))
+        log(f"[driver] stream state of step {steps} loaded bit for bit (generator included); "
+            f"resumed from step {DRIVER_FRAMES[0]}: {resumed['steps']} steps, "
+            f"{resumed['gradient_updates']} gradient updates (uninterrupted "
+            f"{result['gradient_updates']}), parameters within {drift:.3g} of the "
+            f"uninterrupted run")
+        if resumed["steps"] != steps:
+            raise AssertionError(f"the resumed run took {resumed['steps']} steps, want {steps}")
+        check_launches("resumed run A")
+
+        # Run B: left-right consistency with the fused ER forward (batch 3).
+        reset()
+        cfg_b = config("run_b", 1, leftright_consistency=True, num_steps=4, ovs_buffer_size=4,
+                       ovs_validate_hz=2, eval_hz=4, skip_initial_eval=True)
+        result_b = sd.adapt_streaming(cfg_b, fused_er_forward=True, device=dev)
+        check_launches("run B (left-right, batch-3 forward)")
+        check_run("run B", result_b, 4)
+    finally:
+        sd.make_flat_streaming_steps = make_steps
+        sd._ReplayPrefetch.item = replay_item
+        sd.BatchLoader.__iter__ = loader_iter
+
+    # The command line, a short run.
+    argv = ["adapt", "--engine", "flat", "--model_name", "cli", "--log_dir",
+            os.path.join(root, "logs"), "--dataset_path", novel, "--dataset_name", "Synthetic",
+            "--split", "synth", "--height", str(h), "--width", str(w), "--stereonet_k", "4",
+            "--stereonet_input_scale", "0", "--compute_dtype", "bfloat16", "--batch_size", "1",
+            "--learning_rate", str(LR), "--clip_grad_norm", "--adapt_mode", "VS+ER",
+            "--num_steps", "4", "--eval_hz", "4", "--ovs_buffer_size", "4",
+            "--ovs_validate_hz", "2", "--ood_threshold", "1e9", "--num_epochs", "1",
+            "--log_frequency", "2", "--skip_initial_eval", "--fused_er_forward",
+            "--transfer_uint8", "--train_dataset_path", train, "--train_dataset_name",
+            "Synthetic", "--train_split", "synth", "--load_weights_folder", weights,
+            "--device", dev.type]
+    # The parser, like the JAX package's, has no flag for fused_siamese or
+    # s2d_refinement, so this run takes the refinement module path: the
+    # tower's kernels are not on it.
+    reset()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("adapt --engine flat failed")
+    check_launches("adapt --engine flat", absent=("coarse_head", "tower_forward",
+                                                  "tower_backward"))
+    with open(os.path.join(root, "logs", "cli", "trials.csv"), newline="") as f:
+        cli_rows = list(csv.reader(f))[1:]
+    if [r[1] for r in cli_rows] != ["4"]:
+        raise AssertionError(f"the command line's trials.csv: {cli_rows}")
+    log(f"[driver] python -m adaptive_stereo_tpu_torch.cli adapt --engine flat: 4 steps, exit 0, "
+        f"{time.perf_counter() - t0:.1f} s; phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1365,8 +1690,14 @@ def main() -> int:
     path = _build.build(verbose=True)
     _build.library()
     log(f"[build] {path.name} built and loaded in {time.perf_counter() - t0:.1f} s")
-    conv_kernel_report(path)
 
+    # Phase 10's datasets are written meanwhile, by two spawned processes
+    # started after the build, whose nvcc processes they would slow (if a
+    # phase fails first, the pool joins them and the directory is removed
+    # as the interpreter exits).
+    driver_root = tempfile.TemporaryDirectory(prefix="chip_smoke_driver_")
+    driver_data = generate_driver_data(driver_root.name, args.seed)
+    conv_kernel_report(path)
     # Phase 3: kernels against their plain versions at the serving shapes.
     cfg = ServingConfig()
     k, s = cfg.stereonet_k, cfg.input_scale
@@ -1380,10 +1711,8 @@ def main() -> int:
     params = {n: t.detach().to(dev) for n, t in params.items()}
     run_stats = tuple(t.to(dev) for t in run_stats)
     cg = torch.Generator(device=dev).manual_seed(args.seed + 1)
-
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=cg, device=dev) * scale).to(dtype)
-
     rows = []
     with torch.inference_mode():
         floor = launch_floor()
@@ -1418,7 +1747,6 @@ def main() -> int:
             lambda: difference_cost_volume_ref(fl, fr, num_disp), None,
             2 * fl.numel() * 2 + num_disp * fl.numel() * 2, n_sub, "f32_cuda_core",
             f"(1,{num_disp},{h},{w},{c}) bf16, bitwise equal in f32 and bf16", floor))
-
         # Aggregation, eval and train mode, f32 and bf16, against the plain
         # version at the serving and training shapes and at CHECK_SHAPES.
         agg_err = None
@@ -1454,7 +1782,6 @@ def main() -> int:
             cost.numel() * 2 + cost.numel() // c * 2 + weight_bytes, stack_ops, "bf16_tensor",
             f"(1,{num_disp},{h},{w},{c}) bf16, 5 launches, {stack_ops / 1e9:.3f} GFLOP; "
             f"cuDNN stack max abs diff to plain {lib_err:.3g}"))
-
         # Soft-argmin + FCS: within 1e-5 absolute, at the serving shape (the
         # error in the row), the training shape, RAGGED and SOFT_ARGMIN_D.
         err = None
@@ -1474,7 +1801,6 @@ def main() -> int:
             lambda: soft_argmin_fcs_cuda(scost), lambda: soft_argmin_fcs_ref(scost), None,
             scost.numel() * 4 + 2 * h * w * 4, 8 * scost.numel(), "f32_cuda_core",
             f"(1,{num_disp},{h},{w}) f32, max abs err {err:.3g}", floor))
-
         # Fused coarse head, eval and train, f32 and bf16, against the plain
         # version and against kernels 1-3 composed, at the serving and
         # training shapes and at CHECK_SHAPES (features (B, H, W), D).
@@ -1507,7 +1833,6 @@ def main() -> int:
             "bf16_tensor",
             f"features (1,{h},{w},{c}) bf16, D={num_disp}, one cooperative launch"))
     wrappers = [row["wrapper"] for row in rows]
-
     # Phase 4: serving at ServingConfig() defaults, then with the fused head.
     rng = np.random.RandomState(args.seed)
     hh, ww = cfg.model_input_height, cfg.model_input_width
@@ -1538,12 +1863,10 @@ def main() -> int:
             f"{lat[0]:.1f} ms, min {min(lat):.2f}); of which upload + forward + download p50 "
             f"{statistics.median(fwd):.2f} ms; points {len(results[-1]['points'])}; launches "
             + ", ".join(f"{name}={n}" for name, n in got.items()))
-
     def disagree(got, want):
         """Max abs difference and the pixels outside the whole-forward band."""
         diff = np.abs(got - want)
         return diff.max(), int((diff > DISP0_ABS_PX + DISP0_REL * np.abs(want)).sum())
-
     checks = [disagree(a["disparity"], b["disparity"])
               for a, b in zip(served[True], served[False])]
     log(f"[serving] fused vs default engine disparity, {FRAMES} frames: max abs diff "
@@ -1561,26 +1884,24 @@ def main() -> int:
         f"engine {diff:.4g} px, {len(res['points'])} points")
     if over or len(res["points"]) == 0:
         raise AssertionError("async fused engine disagrees with the sync one")
-
     # Phase 5: whole forward, kernels vs the same forward of plain versions.
     left = torch.from_numpy(frames[0][0][None]).to(dev)
     right = torch.from_numpy(frames[0][1][None]).to(dev)
     for fused in (False, True):
         whole_forward(engines[fused].model, left, right, k, s,
                       "fused" if fused else "default")
-
     # Phase 6: where the time of a served frame goes, on the device.
     for fused in (False, True):
         log(f"[profile] fused_coarse_head={fused}")
         profile_breakdown(lambda: engines[fused].process(*frames[0]))
-
     # Phase 7: the tower kernels; phase 8: autograd of kernels 1-3.
     tower_phase(model_cpu, dev, args.seed, rows)
     autograd_phase(params, run_stats, dev, args.seed, rows)
-
     # Phase 9: training.
-    training_phase(args.seed, dev, rows)
-
+    bare_ms = training_phase(args.seed, dev, rows)
+    # Phase 10: the streaming adaptation driver.
+    driver_phase(args.seed, dev, rows, card, bare_ms, driver_root.name, driver_data)
+    driver_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
             "backward_plain_ms", "backward_bound_ms", "backward_train_launches")

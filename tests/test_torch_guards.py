@@ -20,7 +20,8 @@ from adaptive_stereo_tpu_torch.serving import ServingConfig, StereoDepthEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = Path(adaptive_stereo_tpu_torch.__file__).resolve().parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "matplotlib", "adaptive_stereo_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "matplotlib", "PIL", "imageio", "tensorboardX",
+             "msgpack", "adaptive_stereo_tpu"}
 
 
 def _imported_roots(path: Path):
@@ -38,8 +39,9 @@ def _imported_roots(path: Path):
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
     """Static scan (jax is already imported in this process): no module of
-    the port, and not chip_smoke.py, imports jax, flax, cv2, matplotlib or
-    the JAX package."""
+    the port, and not chip_smoke.py, imports jax, flax, cv2, matplotlib,
+    PIL, imageio, tensorboardX, msgpack or the JAX package (the port decodes
+    PNGs with zlib and reads flax's msgpack container itself)."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     bad = [f"{f.relative_to(REPO)}:{line} imports {mod}"
@@ -64,6 +66,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     ss = init_flat_stream_state(model, 5e-5, 4, 32, 64, 8, device="cpu")
     assert ss.reservoir.left.device.type == ss.log.device.type == "cpu"
+
+
+def test_driver_and_cli_raise_without_cuda(monkeypatch, tmp_path):
+    """adapt_streaming and `adapt --engine flat` run on CUDA unless asked
+    for the CPU: without CUDA they raise before reading any data."""
+    from adaptive_stereo_tpu_torch.cli import main
+    from adaptive_stereo_tpu_torch.engine import ExperimentConfig, adapt_streaming
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(log_dir=str(tmp_path), load_weights_folder=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        adapt_streaming(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["adapt", "--engine", "flat", "--log_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_kernel_modules_import_without_cuda_or_nvcc(tmp_path):

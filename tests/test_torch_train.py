@@ -237,7 +237,7 @@ def test_adapt_chain_done_and_validate_match_jax(fused_er):
     jss, spec, (j_adapt, j_done, j_validate, _) = _jax_engine(variables, 0, fused_er)
     model = _port(variables, fused_siamese=True, fused_tower=True)
     ss = init_flat_stream_state(model, LR, 16, H, W, 64, seed=0, device="cpu")
-    adapt, done, validate = make_flat_streaming_steps(
+    adapt, done, validate, _ = make_flat_streaming_steps(
         model, S, K, use_er=True, use_vs=True, ood_threshold=12.76, clip_grad_norm=True,
         fused_er_forward=fused_er)
     t = torch.from_numpy
