@@ -13,11 +13,16 @@ Layout (mirrors adaptive_stereo_tpu/):
                each with its plain PyTorch version beside it
   models/      StereoNet as nn.Modules with the reference state-dict keys
   serving/     stream-ingest depth engine (eval forward -> depth -> cloud)
-  engine/      online adaptation (adapt / done / validate steps, reservoir,
-               the streaming driver, eval, config, checkpoints)
+  engine/      supervised training, the classic and the streaming
+               adaptation engines (steps, reservoirs, drivers), eval,
+               offline inference tools, config, train state, checkpoints
   data/        datasets, loaders, PNG / PFM IO, the synthetic generator
-  utils/       console banners, run provenance, trials.csv
-  cli.py       `python -m adaptive_stereo_tpu_torch.cli adapt --engine flat`
+  utils/       console banners, run provenance, trials.csv, the OVS
+               reservoir and priority queue, the disparity colormap
+  analysis/    the timing benchmark
+  experiments.py  the reference's named experiment configurations
+  cli.py       `python -m adaptive_stereo_tpu_torch.cli train | adapt |
+               evaluate | timing`
 
 Entry points run on "cuda" unless the caller passes device="cpu"; asking for
 CUDA on a machine without it raises.

@@ -1,13 +1,17 @@
 """Command-line interface of the port (counterpart of
-adaptive_stereo_tpu/cli.py): the JAX package's parser and flag checks, and
-the `adapt --engine flat` subcommand:
+adaptive_stereo_tpu/cli.py): the JAX package's parser, subcommands and
+flag checks:
 
-    python -m adaptive_stereo_tpu_torch.cli adapt --engine flat --device cpu ...
+    python -m adaptive_stereo_tpu_torch.cli train --dataset_path ... --split ...
+    python -m adaptive_stereo_tpu_torch.cli adapt --adapt_mode VS+ER ...
+    python -m adaptive_stereo_tpu_torch.cli adapt --engine flat ...
+    python -m adaptive_stereo_tpu_torch.cli evaluate --mode playback ...
+    python -m adaptive_stereo_tpu_torch.cli timing
 
 Flag names match the reference's (reference train.py:246-301). --device
-(default cuda) is the one flag the JAX parser lacks; it changes no result.
-The classic and pytree engines and the train, evaluate and timing
-subcommands are not ported yet and exit with a message that says so.
+(default cuda; every subcommand) is the one flag the JAX parser lacks; it
+changes no result. `adapt --engine pytree` and `--device_cache` are not
+ported yet and exit with a message that says so.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .device import resolve_device
 from .engine.config import (
     AdaptConfig,
     DataConfig,
@@ -159,6 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
     tm.add_argument("--stereonet_k", type=int, default=4)
     tm.add_argument("--compute_dtype", default="bfloat16")
     tm.add_argument("--batch_size", type=int, default=1)
+    tm.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model runs (the port's only flag beyond the JAX parser's)")
     return p
 
 
@@ -205,7 +212,7 @@ def options_to_config(opt) -> ExperimentConfig:
 
 def _not_ported(what: str, where: str):
     raise SystemExit(f"{what} ({where}) is not ported yet to adaptive_stereo_tpu_torch; "
-                     "use `adapt --engine flat`, or the JAX package "
+                     "use `adapt --engine classic` or `--engine flat`, or the JAX package "
                      "(python -m adaptive_stereo_tpu.cli)")
 
 
@@ -213,13 +220,27 @@ def main(argv=None) -> int:
     opt = build_parser().parse_args(argv)
 
     if opt.command == "timing":
-        _not_ported("the `timing` subcommand", "analysis/timing.py")
-    if opt.command == "train":
-        _not_ported("the `train` subcommand", "engine/train.py")
-    if opt.command == "evaluate":
-        _not_ported("the `evaluate` subcommand", "engine/inference_tools.py")
+        from .analysis.timing import time_stereonet
+
+        r = time_stereonet(n=opt.iterations, height=opt.height, width=opt.width,
+                           k=opt.stereonet_k, compute_dtype=opt.compute_dtype,
+                           batch_size=opt.batch_size, device=opt.device)
+        print("-" * 67)
+        print("-- Timing (inference only): %f sec (%f hz)"
+              % (r["inference_sec"], r["inference_hz"]))
+        print("-- Timing (inference + backprop): %f sec (%f hz)"
+              % (r["backprop_sec"], r["backprop_hz"]))
+        print("-" * 67)
+        return 0
 
     cfg = options_to_config(opt)
+
+    if opt.command == "train":
+        from .engine.train import train
+
+        train(cfg, splits_root=opt.splits_root, device=opt.device)
+        print("Done with training!")
+        return 0
 
     if opt.command == "adapt":
         print("\nStarting adaptation ...")
@@ -240,21 +261,60 @@ def main(argv=None) -> int:
                     "engine does not support streaming-state resume")
             if opt.loss_dtype:
                 raise SystemExit("--loss_dtype requires --engine flat")
-            _not_ported("--engine classic", "engine/adapt.py")
-        if opt.engine == "pytree":
-            _not_ported("--engine pytree", "engine/stream_adapt.py")
-        from .engine.stream_driver import adapt_streaming
+            from .engine.adapt import adapt
 
-        adapt_streaming(cfg, splits_root=opt.splits_root,
-                        train_splits_root=opt.train_splits_root,
-                        engine=opt.engine,
-                        transfer_uint8=opt.transfer_uint8,
-                        fused_er_forward=opt.fused_er_forward,
-                        done_batch=opt.done_batch,
-                        device_cache=opt.device_cache,
-                        resume_from=opt.resume_from or None,
-                        device=opt.device)
+            adapt(cfg, splits_root=opt.splits_root, train_splits_root=opt.train_splits_root,
+                  device=opt.device)
+        elif opt.engine == "pytree":
+            _not_ported("--engine pytree", "engine/stream_adapt.py")
+        else:
+            from .engine.stream_driver import adapt_streaming
+
+            adapt_streaming(cfg, splits_root=opt.splits_root,
+                            train_splits_root=opt.train_splits_root,
+                            engine=opt.engine,
+                            transfer_uint8=opt.transfer_uint8,
+                            fused_er_forward=opt.fused_er_forward,
+                            done_batch=opt.done_batch,
+                            device_cache=opt.device_cache,
+                            resume_from=opt.resume_from or None,
+                            device=opt.device)
         print("Done with adaptation!")
+        return 0
+
+    if opt.command == "evaluate":
+        from .data import BatchLoader, StereoDataset
+        from .engine.checkpoint import load_variables
+        from .engine.evaluate import evaluate as run_eval
+        from .engine.inference_tools import playback, render_video_frames, save_disparities
+        from .engine.steps import make_eval_step
+        from .models import build_model, state_dicts_from_jax
+
+        s = cfg.model.input_scale
+        model = build_model(cfg.model, resolve_device(opt.device))
+        model.load_state_dicts(*state_dicts_from_jax(load_variables(cfg.load_weights_folder),
+                                                     cfg.model.k))
+        dataset = StereoDataset(cfg.data.dataset_path, cfg.data.dataset_name,
+                                cfg.data.split, cfg.data.height, cfg.data.width,
+                                opt.subsplit, scales=[s],
+                                load_disp_right=False, splits_root=opt.splits_root)
+        if opt.mode == "eval":
+            loader = BatchLoader(dataset, max(1, cfg.data.batch_size), shuffle=False,
+                                 num_workers=cfg.data.num_workers)
+            metrics = run_eval(make_eval_step(model, s, cfg.model.k), model, loader,
+                               cfg.fast_eval)
+            print("EVAL    // " + " | ".join(f"{n}={v:.4f}"
+                                             for n, v in sorted(metrics.items())))
+            return 0
+        if opt.mode == "save":
+            n = save_disparities(model, None, dataset, opt.output_folder, s, opt.limit)
+            print(f"Saved {n} disparity maps to {opt.output_folder}")
+        elif opt.mode == "playback":
+            r = playback(model, None, dataset, opt.output_folder, s, opt.limit)
+            print(f"Playback done: mean EPE={r['EPE']:.3f} over {r['count']} images")
+        else:
+            n = render_video_frames(model, None, dataset, opt.output_folder, s, opt.limit)
+            print(f"Rendered {n} frames to {opt.output_folder}")
         return 0
 
     return 1

@@ -35,7 +35,11 @@
 //                         reversed and ci/co swapped), plus the residual
 //                         gx_{p+1} for 1 <= p <= 6, and per-tile sums
 //                         S1 = sum gl_{p-1}, S2 = sum gl_{p-1} * xhat_{p-1}
-//                         for layer p - 1
+//                         for layer p - 1, over gx_p as stored (rounded to
+//                         T), the value stereo_tower_grad_y reads (the TPU
+//                         kernel sums the unrounded gx, which leaves the
+//                         rounding's common bias in gy where gx is nearly
+//                         constant over a channel)
 //   stereo_tower_sums     every cross-block reduction of the layer (db and
 //                         dW from the wgrad rows, S1/S2 from the conv's) in
 //                         one launch: neighbouring threads take neighbouring
@@ -167,6 +171,11 @@ __device__ __forceinline__ void tower_epilogue(float acc, int epilogue,
   }
   float g = acc;
   if (e.skip != nullptr) g += to_float(static_cast<const T*>(e.skip)[gi]);
+  // The sums are over the stored (rounded) gradient, the value the BN
+  // backward of layer p - 1 reads: where the gradient is nearly constant
+  // over a channel, gl - m1 cancels, and sums of the unrounded values
+  // would leave the rounding's common bias in gy.
+  g = round_to<T>(g);
   if (e.yprev != nullptr) {
     const float y = to_float(static_cast<const T*>(e.yprev)[gi]);
     const float xhat = (y - e.mu[co]) * e.inv[co];
@@ -484,6 +493,8 @@ __global__ void __launch_bounds__(TOWER_THREADS)
             v0 += sk.x;
             v1 += sk.y;
           }
+          v0 = bf16_round(v0);  // the sums are over the stored value (tower_epilogue)
+          v1 = bf16_round(v1);
           if (yprev != nullptr) {
             const float2 y =
                 __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yprev + gi + co));

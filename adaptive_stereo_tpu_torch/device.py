@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -33,3 +34,9 @@ def optional_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     if name == "bfloat16":
         return torch.bfloat16
     raise ValueError(f"unsupported compute dtype {name!r}")
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A loader's numpy batch as tensors on `device`."""
+    return {key: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            for key, v in batch.items()}

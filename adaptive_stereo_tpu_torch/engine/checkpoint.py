@@ -1,6 +1,7 @@
 """Checkpoints in the JAX package's container (counterpart of
-adaptive_stereo_tpu/engine/checkpoint.py:70-104, load_variables and
-save_variables).
+adaptive_stereo_tpu/engine/checkpoint.py): the whole train state
+(save_checkpoint / load_checkpoint) and bare weights (save_variables /
+load_variables).
 
 Layout: <folder>/state.msgpack holds {'params': ..., 'batch_stats': ...},
 the JAX StereoModel's variables (models/weights.py carries them to and from
@@ -13,8 +14,18 @@ flax), so either package loads what the other wrote. (flax's forms for
 complex numbers and for arrays over 1 GiB never occur in these files.) A reference weights
 folder (feature_net.pth / stereo_net.pth) loads too.
 
-The full TrainState checkpoint (optimizer state, step) waits for the
-training engine.
+A train-state checkpoint, models/weights_<tag>/ under the run's log path,
+holds the tree flax's to_bytes writes for the JAX TrainState:
+  step         () int32
+  params, batch_stats
+  opt_state    optax's inject_hyperparams(adam) state, NamedTuples as maps
+               of their fields and tuples as maps of '0', '1', ...:
+               {count () int32, hyperparams {b1, b2, eps, eps_root,
+               learning_rate: () float32}, hyperparams_states {},
+               inner_state {'0': ScaleByAdamState {count, mu, nu},
+                             '1': EmptyState {}}}
+mu and nu have the params' tree. The two counts are equal in both
+packages (a skipped update keeps both), and the port keeps one.
 """
 
 from __future__ import annotations
@@ -25,6 +36,10 @@ import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+from ..models.weights import state_dicts_from_jax, variables_from_state_dicts
+from .state import TrainState, make_optimizer
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
@@ -238,10 +253,95 @@ def load_variables(folder: str) -> Dict[str, Any]:
             restored = unpackb(f.read())
         return {"params": restored["params"], "batch_stats": restored["batch_stats"]}
     if os.path.exists(os.path.join(folder, "feature_net.pth")):
-        from ..models.weights import load_reference_folder, variables_from_state_dicts
+        from ..models.weights import load_reference_folder
 
         fsd, ssd = load_reference_folder(folder)
         # k is the number of downsampling convs.
         k = len({n.split(".")[1] for n in fsd if n.startswith("downsample.")})
         return variables_from_state_dicts(fsd, ssd, k)
     raise FileNotFoundError(f"no checkpoint found in {folder}")
+
+
+def _live_names(model: torch.nn.Module):
+    """(net, key) of the live parameters, in live_parameters order."""
+    return [tuple(name.split(".", 1)) for name, _ in model.named_parameters()
+            if ".conv2." not in name]
+
+
+def _jax_variables(model: torch.nn.Module, tensors=None) -> Dict[str, Any]:
+    """JAX-layout {'params', 'batch_stats'} of the model's weights, or with
+    `tensors` (one per live parameter, e.g. Adam moments) those in the
+    parameters' places."""
+    sds = {"feature_net": dict(model.feature_net.state_dict()),
+           "stereo_net": dict(model.stereo_net.state_dict())}
+    if tensors is not None:
+        for (net, key), t in zip(_live_names(model), tensors):
+            sds[net][key] = t
+    return variables_from_state_dicts(sds["feature_net"], sds["stereo_net"],
+                                      model.feature_net.k)
+
+
+def _live_tensors(model: torch.nn.Module, tree: Dict[str, Any], batch_stats) -> list:
+    """The inverse of _jax_variables(model, tensors): CPU tensors, one per
+    live parameter, from a params-shaped tree."""
+    fsd, ssd = state_dicts_from_jax({"params": tree, "batch_stats": batch_stats},
+                                    model.feature_net.k)
+    sds = {"feature_net": fsd, "stereo_net": ssd}
+    return [sds[net][key] for net, key in _live_names(model)]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save_checkpoint(log_path: str, state: TrainState, tag,
+                    metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Save the whole train state under <log_path>/models/weights_<tag>/
+    (reference naming, train.py:130): state.msgpack with step, params,
+    batch_stats and the Adam state in the JAX layout (the module
+    docstring), which JAX's load_checkpoint reads, and meta.json."""
+    folder = os.path.join(log_path, "models", f"weights_{tag}")
+    os.makedirs(folder, exist_ok=True)
+    variables = _jax_variables(state.model)
+    count = _host(state.count)
+    hyper = make_optimizer(float(state.lr))
+    opt_state = {
+        "count": count,
+        "hyperparams": {name: np.asarray(v, np.float32) for name, v in hyper.items()},
+        "hyperparams_states": {},
+        "inner_state": {"0": {"count": count,
+                              "mu": _jax_variables(state.model, state.m)["params"],
+                              "nu": _jax_variables(state.model, state.v)["params"]},
+                        "1": {}},
+    }
+    payload = {"step": _host(state.step), "params": variables["params"],
+               "batch_stats": variables["batch_stats"], "opt_state": opt_state}
+    with open(os.path.join(folder, "state.msgpack"), "wb") as f:
+        f.write(packb(payload))
+    with open(os.path.join(folder, "meta.json"), "w") as f:
+        json.dump(metadata or {}, f, indent=2, sort_keys=True)
+    return folder
+
+
+@torch.no_grad()
+def load_checkpoint(folder: str, state: TrainState) -> TrainState:
+    """Restore a train state that save_checkpoint (either package's) wrote
+    into `state` (of a model of the same configuration), in place: the
+    weights and BatchNorm statistics, the Adam moments and count, the step
+    and the learning rate. Returns the state."""
+    with open(os.path.join(folder, "state.msgpack"), "rb") as f:
+        payload = unpackb(f.read())
+    opt = payload["opt_state"]
+    adam = opt["inner_state"]["0"]
+    if int(opt["count"]) != int(adam["count"]):
+        raise ValueError(f"{folder}: the optimizer's counts differ ({int(opt['count'])} and "
+                         f"{int(adam['count'])})")
+    model = state.model
+    model.load_state_dicts(*state_dicts_from_jax(payload, model.feature_net.k))
+    for dst, tree in ((state.m, adam["mu"]), (state.v, adam["nu"])):
+        torch._foreach_copy_(dst, [t.to(dst[0].device)
+                                   for t in _live_tensors(model, tree, payload["batch_stats"])])
+    state.count.fill_(int(adam["count"]))
+    state.step.fill_(int(payload["step"]))
+    state.lr.fill_(float(opt["hyperparams"]["learning_rate"]))
+    return state

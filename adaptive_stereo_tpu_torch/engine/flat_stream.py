@@ -12,7 +12,9 @@ bench.py times. One adapt_step is:
   - the stereo-net-only gradient clip and the masked Adam update;
   - one row of the ring log, in LOG_COLS order.
 Nothing in a step reads the device back: every decision is a tensor
-(torch.where), so the host runs ahead of the card.
+(torch.where), so the host runs ahead of the card. The forward and losses
+(make_forward_losses), the FCS EMA, the clip and the masked Adam are the
+pieces engine/steps.py and engine/state.py share with the classic engine.
 
 The JAX engine flattens parameters and optimizer state into single vectors
 to cut TPU dispatch cost; the port keeps per-parameter tensors and updates
@@ -48,32 +50,18 @@ from typing import List
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.losses import (khamis_robust_loss, monodepth_leftright_loss,
-                          monodepth_single_loss)
 from .device_reservoir import (DeviceReservoir, init_device_reservoir,
                                reservoir_average_value, reservoir_maybe_add,
                                reservoir_set_values)
-from .steps import epe, mean_fcs_from_outputs
+from .state import adam_masked, live_buffers, live_parameters
+from .steps import (check_warp_precision, clip_stereo_net_grads, epe, make_forward_losses,
+                    mean_fcs_from_outputs, smoothed_fcs)
 
 # Ring-log column layout (adaptive_stereo_tpu/engine/stream_adapt.py:LOG_COLS).
 LOG_COLS = (
     "fcs_raw", "fcs_smoothed", "mono_loss", "replay_loss", "epe",
     "novel", "did_add", "do_update",
 )
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def live_parameters(model: torch.nn.Module) -> List[torch.nn.Parameter]:
-    """The parameters the forward uses, feature net first: every parameter
-    but the BasicBlocks' dead conv2 (which the JAX model does not have)."""
-    return [p for name, p in model.named_parameters() if ".conv2." not in name]
-
-
-def live_buffers(model: torch.nn.Module) -> List[torch.Tensor]:
-    """The BatchNorm running statistics the forward uses and train mode
-    updates (every running_mean and running_var but the dead conv2's)."""
-    return [b for name, b in model.named_buffers()
-            if name.endswith(("running_mean", "running_var")) and ".conv2." not in name]
 
 
 @dataclass
@@ -123,26 +111,6 @@ def init_flat_stream_state(model: torch.nn.Module, learning_rate: float, capacit
     )
 
 
-def _masked_assign(dst: List[torch.Tensor], new: List[torch.Tensor], keep: torch.Tensor) -> None:
-    """dst <- dst where keep else new, for every tensor, in a few launches."""
-    sizes = [t.numel() for t in dst]
-    old = torch.cat([t.reshape(-1) for t in dst])
-    sel = torch.where(keep, old, torch.cat([t.reshape(-1) for t in new]))
-    torch._foreach_copy_(dst, [s.view_as(d) for s, d in zip(sel.split(sizes), dst)])
-
-
-def _loss_dtype(loss_dtype, use_leftright: bool):
-    """The reduced dtype of the single-sided loss, or None for float32."""
-    if loss_dtype in (None, "", "float32"):
-        return None
-    if loss_dtype == "bfloat16":
-        if use_leftright:
-            raise ValueError("loss_dtype is only implemented for the single-sided Monodepth "
-                             "path; it cannot be combined with use_leftright")
-        return torch.bfloat16
-    raise ValueError(f"unsupported loss_dtype {loss_dtype!r}")
-
-
 def make_flat_streaming_steps(
     model: torch.nn.Module,
     input_scale: int,
@@ -189,61 +157,19 @@ def make_flat_streaming_steps(
     single-sided loss computed in that dtype and cast back to float32.
     warp_precision: "highest" only (see the module docstring).
     """
-    if warp_precision != "highest":
-        raise ValueError(f"warp_precision {warp_precision!r} is a TPU matrix-unit precision "
-                         "of the JAX warp; the port's warp (F.grid_sample) is exact, which "
-                         "is 'highest'")
-    loss_dt = _loss_dtype(loss_dtype, use_leftright)
+    check_warp_precision(warp_precision)
     coarse = input_scale + k
-    s = input_scale
-    pred_key = f"pred_disp_l/{s}"
-    warp_max_disp = -(-model.stereo_net.maxdisp // 2 ** input_scale)
+    pred_key = f"pred_disp_l/{input_scale}"
+    forward_losses, mono_loss = make_forward_losses(
+        model, input_scale, smoothness_weight, er_loss_weight, use_er=use_er,
+        fused_er_forward=fused_er_forward, use_leftright=use_leftright,
+        consistency_weight=consistency_weight, loss_dtype=loss_dtype)
 
     def dec(img):
         return img.to(torch.float32) / 255.0 if images_uint8 else img
 
-    def flip(x):
-        return torch.flip(x, dims=(2,))
-
-    def mono_loss(left, right, pred):
-        if loss_dt is not None:
-            left, right, pred = left.to(loss_dt), right.to(loss_dt), pred.to(loss_dt)
-        return monodepth_single_loss(left, right, pred, smoothness_weight,
-                                     max_disp=warp_max_disp)[0].float()
-
-    def clip(ss, grads):
-        if not clip_grad_norm:
-            return
-        stereo = grads[ss.n_feature:]
-        norm = torch.stack(torch._foreach_norm(stereo)).square().sum().sqrt()
-        scale = torch.clamp(1.0 / (norm + 1e-6), max=1.0)
-        torch._foreach_mul_(stereo, scale)
-
-    def adam_masked(ss, grads, do_update):
-        new_count = ss.count + 1
-        c = new_count.float()
-        m = torch._foreach_add(torch._foreach_mul(ss.m, ADAM_B1),
-                               torch._foreach_mul(grads, 1 - ADAM_B1))
-        gg = torch._foreach_mul(grads, 1 - ADAM_B2)
-        torch._foreach_mul_(gg, grads)
-        v = torch._foreach_add(torch._foreach_mul(ss.v, ADAM_B2), gg)
-        mhat = torch._foreach_div(m, 1 - torch.pow(ADAM_B1, c))
-        vhat = torch._foreach_div(v, 1 - torch.pow(ADAM_B2, c))
-        step = torch._foreach_mul(mhat, ss.lr)
-        denom = torch._foreach_add(torch._foreach_sqrt(vhat), ADAM_EPS)
-        theta = torch._foreach_sub([p.detach() for p in ss.params],
-                                   torch._foreach_div(step, denom))
-        keep = ~do_update
-        with torch.no_grad():
-            _masked_assign(ss.params, theta, keep)
-        _masked_assign(ss.m, m, keep)
-        _masked_assign(ss.v, v, keep)
-        ss.count.copy_(torch.where(keep, ss.count, new_count))
-
     def gate(ss, fcs_raw, left, right, mono, frame_idx):
-        smoothed = torch.where(
-            ss.ema_init, ss.ema_value * fcs_ema_weight + (1 - fcs_ema_weight) * fcs_raw,
-            fcs_raw)
+        smoothed = smoothed_fcs(ss.ema_value, ss.ema_init, fcs_raw, fcs_ema_weight)
         novel = (smoothed < ood_threshold) if use_vs else torch.zeros_like(ss.ema_init)
         _, did_add = reservoir_maybe_add(ss.reservoir, left, right, mono, frame_idx, novel)
         ss.ema_value.copy_(smoothed)
@@ -255,46 +181,6 @@ def make_flat_streaming_steps(
         pos = (ss.log_pos % ss.log.shape[0]).long().view(1)
         ss.log.index_copy_(0, pos, row[None])
         ss.log_pos.add_(1)
-
-    def replay_forward(er_left, er_right, er_gt):
-        er_out = model(er_left, er_right, side="l", output_cost_volume=False)
-        return khamis_robust_loss(er_out[pred_key], er_gt)
-
-    def forward_losses(left, right, er_left, er_right, er_gt):
-        """Train-mode forward(s) and losses: (total, mono, replay, pred of the
-        stream frame, outputs of the stream frame for FCS)."""
-        zero = torch.zeros((), dtype=torch.float32, device=left.device)
-        fused = use_er and fused_er_forward
-        if use_leftright:
-            rows_l, rows_r = [left, flip(right)], [right, flip(left)]
-            if fused:
-                rows_l.append(er_left)
-                rows_r.append(er_right)
-            outputs = model(torch.cat(rows_l), torch.cat(rows_r), side="l",
-                            output_cost_volume=True)
-            preds = outputs[pred_key]
-            pred = preds[0:1]
-            mono = monodepth_leftright_loss(left, right, pred, flip(preds[1:2]),
-                                            smoothness_weight, consistency_weight,
-                                            max_disp=warp_max_disp)[0]
-            replay = khamis_robust_loss(preds[2:3], er_gt) if fused else zero
-        elif fused:
-            outputs = model(torch.cat([left, er_left]), torch.cat([right, er_right]),
-                            side="l", output_cost_volume=True)
-            preds = outputs[pred_key]
-            pred = preds[0:1]
-            mono = mono_loss(left, right, pred)
-            replay = khamis_robust_loss(preds[1:2], er_gt)
-        else:
-            outputs = model(left, right, side="l", output_cost_volume=True)
-            pred = outputs[pred_key]
-            mono = mono_loss(left, right, pred)
-            replay = zero
-        if use_er and not fused:
-            replay = replay_forward(er_left, er_right, er_gt)
-        total = mono + er_loss_weight * replay if use_er else mono
-        fcs_outputs = {key: v[0:1] for key, v in outputs.items()}
-        return total, mono, replay, pred, fcs_outputs
 
     def adapt_step(ss: FlatStreamState, left, right, gt, er_left, er_right, er_gt, frame_idx):
         model.train()
@@ -309,7 +195,8 @@ def make_flat_streaming_steps(
 
         smoothed, novel, did_add = gate(ss, fcs_raw, left, right, mono, frame_idx)
         do_update = ~did_add
-        clip(ss, grads)
+        if clip_grad_norm:
+            clip_stereo_net_grads(grads, ss.n_feature)
         adam_masked(ss, grads, do_update)
         write_log(ss, (fcs_raw, smoothed, mono, replay, error, novel, did_add, do_update))
         return ss

@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from ..data import BatchLoader, StereoDataset
-from ..device import DeviceLike, optional_dtype, resolve_device
-from ..models import StereoModel, state_dicts_from_jax, variables_from_state_dicts
+from ..device import DeviceLike, resolve_device
+from ..models import build_model, state_dicts_from_jax, variables_from_state_dicts
 from ..ops.warp import linear_warp
 from ..utils.logging_utils import MetricsWriter, TrialsLog, write_opt_json
 from .adapt import State
@@ -472,9 +472,7 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
         if cfg.load_weights_folder is None:
             raise ValueError("adapt_streaming() needs pretrained weights")
         variables = load_variables(cfg.load_weights_folder)
-    model = StereoModel(k=k, input_scale=s, maxdisp=mc.maxdisp,
-                        dtype=optional_dtype(mc.compute_dtype), device=dev,
-                        fused_siamese=mc.fused_siamese, fused_tower=mc.s2d_refinement)
+    model = build_model(cfg.model, dev)
     model.load_state_dicts(*state_dicts_from_jax(variables, k))
     hs, ws = dc.height // 2 ** s, dc.width // 2 ** s
 

@@ -7,6 +7,7 @@ from .stereo_net import (
     FeatureExtractorNetwork,
     StereoModel,
     StereoNet,
+    build_model,
     coarse_num_disparities,
     random_init_,
     resize_bilinear,
@@ -22,6 +23,7 @@ __all__ = [
     "aggregation_args",
     "apply_aggregation",
     "apply_coarse_head",
+    "build_model",
     "coarse_num_disparities",
     "load_reference_folder",
     "random_init_",

@@ -40,7 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, optional_dtype, resolve_device
 from ..ops.cuda import difference_cost_volume_cuda, soft_argmin_fcs_cuda, tower_cuda
 from .aggregation import (BN_MOMENTUM, apply_aggregation, apply_coarse_head,
                           update_running_stats)
@@ -324,6 +324,16 @@ class StereoModel(nn.Module):
             fl = self.feature_net(left_img)
             fr = self.feature_net(right_img)
         return self.stereo_net(left_img, fl, fr, side, output_cost_volume)
+
+
+def build_model(model_cfg, device: DeviceLike = None) -> StereoModel:
+    """The StereoModel of a ModelConfig (engine/config.py) on `device`
+    (s2d_refinement selects the refinement-tower kernels, the port's
+    counterpart of JAX's space-to-depth tower)."""
+    mc = model_cfg
+    return StereoModel(k=mc.k, input_scale=mc.input_scale, maxdisp=mc.maxdisp,
+                       dtype=optional_dtype(mc.compute_dtype), device=device,
+                       fused_siamese=mc.fused_siamese, fused_tower=mc.s2d_refinement)
 
 
 @torch.no_grad()

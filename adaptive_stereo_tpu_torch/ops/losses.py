@@ -4,6 +4,8 @@ Counterpart of adaptive_stereo_tpu/ops/losses.py, with the reference's
 numerics (adaptive_stereo/utils/loss_functions.py):
 - khamis_robust_loss (:6-15): mean over gt > 0 of sqrt((gt-pred)^2 + 4)/2 - 1,
   with the count floored at 1.
+- khamis_robust_loss_multiscale (:18-38): the sum of that loss over the
+  prediction scales, each against the same full-resolution ground truth.
 - ssim (:41-72): 3x3 average pools with count_include_pad=True (every window
   divides by 9, zero padding included), then clamp((1 - SSIM)/2, 0, 1).
 - monodepth_edge_aware_smoothness_loss (:75-103): image-gradient-weighted
@@ -36,6 +38,24 @@ def khamis_robust_loss(pred_disp: torch.Tensor, gt_disp: torch.Tensor) -> torch.
     num_valid = torch.clamp(mask.sum(), min=1.0)
     err = torch.sqrt((gt_disp - pred_disp) ** 2 + 4.0) / 2.0 - 1.0
     return (err * mask).sum() / num_valid
+
+
+def khamis_robust_loss_multiscale(inputs: Dict[str, torch.Tensor],
+                                  outputs: Dict[str, torch.Tensor], scales=(0,),
+                                  gt_disp_scale: int = 0) -> Dict[str, torch.Tensor]:
+    """Multi-scale Khamis loss (JAX ops/losses.py:42-58): every scale's
+    prediction is full-resolution already (the model upsamples), compared
+    with the same full-resolution ground truth. Returns
+    {'khamis_robust_loss/<scale>': ..., 'total_loss': their sum}."""
+    losses: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    for scale in scales:
+        loss = khamis_robust_loss(outputs[f"pred_disp_l/{scale}"],
+                                  inputs[f"gt_disp_l/{gt_disp_scale}"])
+        losses[f"khamis_robust_loss/{scale}"] = loss
+        total = total + loss
+    losses["total_loss"] = total
+    return losses
 
 
 def _avg_pool_3x3(x: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,7 @@ from .stream import (
     StereoDepthEngine,
     depth_to_pointcloud,
     disparity_to_depth,
+    replay_dataset_stream,
     voxel_downsample,
 )
 
@@ -16,5 +17,6 @@ __all__ = [
     "StereoDepthEngine",
     "depth_to_pointcloud",
     "disparity_to_depth",
+    "replay_dataset_stream",
     "voxel_downsample",
 ]

@@ -12,9 +12,11 @@ CUDA kernel, or the three kernels in turn (the default). Unlike the JAX
 engine, which takes the fused head on a TPU backend only, the port runs the
 fused kernel on CUDA whenever the config asks for it.
 
-Not ported yet: the on_disparity colormap callback (raises
-NotImplementedError), the flax msgpack checkpoint and the native voxel
-grid.
+on_disparity gets the colormapped voxel-scale disparity
+(utils/visualization.py, matplotlib's magma table without matplotlib),
+rate-limited to publish_disp_hz as in the JAX engine.
+
+Not ported yet: the flax msgpack checkpoint and the native voxel grid.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, optional_dtype, resolve_device
 from ..models import StereoModel, load_reference_folder
+from ..utils.visualization import apply_disparity_colormap
 
 Weights = Union[str, Tuple[dict, dict], None]
 
@@ -98,6 +101,9 @@ class StereoDepthEngine:
     weights: a (feature_net, stereo_net) pair of reference-layout state
     dicts, or a folder holding feature_net.pth / stereo_net.pth; None reads
     config.load_weights_folder.
+    on_disparity(disp_colorized_hw3, scale, timestamp) is called with the
+    colormapped voxel-scale disparity, at most publish_disp_hz times a
+    second (reference :154-157).
     on_pointcloud(points_n3, colors_n3, timestamp) is called per frame.
     device: "cuda" unless the caller passes "cpu".
     """
@@ -106,10 +112,8 @@ class StereoDepthEngine:
                  on_disparity: Optional[Callable] = None,
                  on_pointcloud: Optional[Callable] = None,
                  device: DeviceLike = None):
-        if on_disparity is not None:
-            raise NotImplementedError(
-                "on_disparity needs the disparity colormap, which is not ported yet")
         self.config = config
+        self.on_disparity = on_disparity
         self.on_pointcloud = on_pointcloud
         self.device = resolve_device(device)
 
@@ -131,6 +135,7 @@ class StereoDepthEngine:
         self.k_voxel[0] /= 2 ** config.voxel_disp_scale
         self.k_voxel[1] /= 2 ** config.voxel_disp_scale
         self.last_inference_sec = None
+        self._last_publish_disp_time = 0.0
 
     def _to_device(self, rgb: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rgb, np.float32)[None]).to(self.device)
@@ -173,8 +178,13 @@ class StereoDepthEngine:
         if p.event is not None:
             p.event.synchronize()
         cfg = self.config
-        disp = p.disp.numpy()
-        depth = disparity_to_depth(p.disp_v.numpy(), self.k_voxel[0, 0],
+        disp, disp_v = p.disp.numpy(), p.disp_v.numpy()
+        if self.on_disparity is not None:
+            if (time.time() - self._last_publish_disp_time) > (1.0 / cfg.publish_disp_hz):
+                self.on_disparity(apply_disparity_colormap(disp_v), cfg.voxel_disp_scale,
+                                  p.timestamp)
+                self._last_publish_disp_time = time.time()
+        depth = disparity_to_depth(disp_v, self.k_voxel[0, 0],
                                    cfg.stereo_baseline_meters, cfg.max_depth)
         color_v = None if p.color_v is None else p.color_v.numpy()
         pts, cols = depth_to_pointcloud(depth, self.k_voxel, color_v)
@@ -230,3 +240,15 @@ def _check_rgb(left_rgb: np.ndarray, right_rgb: np.ndarray) -> None:
     for name, img in (("left", left_rgb), ("right", right_rgb)):
         if img.min() < 0 or img.max() > 1.0:
             raise ValueError(f"{name} image must be float in [0, 1]")
+
+
+def replay_dataset_stream(engine: StereoDepthEngine, dataset, num_frames: int = -1):
+    """Dataset-backed test publisher (replaces ros/test_image_publisher.py;
+    JAX serving/stream.py:244-252): feeds the dataset's pairs through the
+    engine in order, timestamped by index. Returns the results."""
+    n = len(dataset) if num_frames < 0 else min(num_frames, len(dataset))
+    results = []
+    for i in range(n):
+        item = dataset[i]
+        results.append(engine.process(item["color_l/0"], item["color_r/0"], timestamp=float(i)))
+    return results

@@ -1,2 +1,3 @@
 """Utilities (counterpart of adaptive_stereo_tpu/utils/): run provenance,
-console metric banners and trials.csv."""
+console metric banners and trials.csv, the OVS reservoir and priority
+queue, and the disparity colormap and PNG panels."""

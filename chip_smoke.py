@@ -94,12 +94,39 @@ Phases, in order; any failure raises and the script exits non-zero:
               median interval between adapt steps inside the driver beside
               phase 9's bare step (the driver's own host overhead), with
               its parts on the loop's thread
+ 11. classic  train / the classic engine / evaluate / timing at 320x960 on
+              phase 10's novel domain and a 16 + 2 frame training domain
+              (a third spawned writer): (b) each kernel call of one
+              train-mode forward and backward of the bf16 model (fused
+              siamese, tower) at batch 8 against its plain version on the
+              recorded inputs, with phase 8's bands (the tower with phase
+              7's), and the step's outputs and per-module gradients
+              against the plain versions' (printed); the same per call for
+              the f32 train step at batch 8 of the command line, one
+              classic-engine step at batch 1 (stream and replay) and the
+              f32 eval forward at batch 2 of evaluate; (c) train(cfg) at
+              training_config's settings (bf16, fused siamese, tower, two
+              epochs, the learning rate halved each epoch), its checkpoint
+              loaded back bit for bit; (d) the bare train step at batch 8:
+              median ms/step of BARE_TRAIN_STEPS, launches per step,
+              device time by kernel, busy share, host operators; (e)
+              adapt(cfg), the classic engine, at adaptation_config's
+              settings (VS+ER, reservoir 4, validation every 4 steps, 12
+              steps) from (c)'s checkpoint, and its interval between steps;
+              (f) cli.main for train (f32), adapt (classic), evaluate eval
+              and playback and timing at its defaults. Each run (each
+              command of (f) on its own) resets the launch counts and fails
+              unless kernels 1, 2, 3 and 5 and both backward kernels
+              launched and kernel 4 did not (the command line: train, adapt
+              and timing 1-3 and the backward kernels; evaluate 1-3 and no
+              backward kernel; none of them 4 or 5)
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
 whose "launches" count the served frames of phase 4 (kernels 1-4) or the
-adapt steps of phase 9 (the tower), and "train_launches" the adapt steps
-of phase 9 for every kernel; "floor_ms" is the launch floor, and the rows
+adapt steps of phase 9 (the tower), "train_launches" the adapt steps of
+phase 9 for every kernel and "train11_launches" the launches per bare
+train step at batch 8 of phase 11; "floor_ms" is the launch floor, and the rows
 of kernels 1 and 3 also carry their backward kernel's time, plain
 version's time, bound and launches over the adapt steps of phase 9.
 Float32 references run with TF32 off (cudnn.allow_tf32 and
@@ -111,6 +138,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import json
 import statistics
 import subprocess
@@ -162,6 +190,13 @@ LR = 5e-5
 DRIVER_SHAPE = (320, 960)
 DRIVER_FRAMES = (12, 2)  # novel-domain stream (domain_shift=True)
 REPLAY_FRAMES = (4, 2)   # training-domain replay and train-val set
+# Phase 11: the training domain of `train` (and the classic engine's replay
+# and train-val set), 16 + 2 frames at DRIVER_SHAPE; the classic engine's
+# stream is phase 10's novel domain. The batch of the training
+# configuration (adaptive_stereo_tpu_torch/experiments.py training_config).
+TRAIN_FRAMES = (16, 2)
+TRAIN_BATCH = 8
+BARE_TRAIN_STEPS = 10    # timed bare train steps, after WARMUP_STEPS
 # Tower, f32 (phase 7): outputs and buffers within 1e-3 + 1e-4 |ref|, mu/var
 # within 1e-4 + 1e-4 |ref| (float32 sums in other orders; 1.3e-4 was
 # measured on an H100 at |ref| = 93). bf16: the kernel chain's error against
@@ -432,15 +467,16 @@ def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
     device's busy share of the wall time, from torch.profiler; with
     host_top, also the host's operator count and its largest self CPU
     times (inflated by the profiler's own cost per operator). Returns the
-    host operators and the kernel launches (cudaLaunchKernel calls) per
-    call of fn() (None, None without device time)."""
+    host operators, the kernel launches (cudaLaunchKernel calls) and the
+    device ms per call of fn(), and the device's busy share of the wall
+    time in % (all None without device time)."""
     from torch.autograd import DeviceType
 
     prof, wall_us, per_name = device_profile(fn, repeats)
     total = sum(t for t, _, _ in per_name)
     if total == 0:
         log("[profile] torch.profiler recorded no device time")
-        return None, None
+        return None, None, None, None
     log(f"[profile] {repeats} {unit}s: wall {wall_us / repeats / 1e3:.3f} ms/{unit}, device "
         f"busy {total / repeats / 1e3:.3f} ms/{unit} ({100 * total / wall_us:.1f}% of wall)")
     log(f"[profile]   {sum(c for _, c, _ in per_name) / repeats:.0f} device calls/{unit}")
@@ -457,7 +493,8 @@ def profile_breakdown(fn, repeats: int = 3, top: int = 12, unit: str = "frame",
                 f"calls/{unit}  {name[:90]}")
     host = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CPU]
     return (sum(evt.count for evt in host) / repeats,
-            sum(evt.count for evt in host if evt.key == "cudaLaunchKernel") / repeats)
+            sum(evt.count for evt in host if evt.key == "cudaLaunchKernel") / repeats,
+            total / repeats / 1e3, 100 * total / wall_us)
 
 
 def bound(nbytes: float, ops: float, op_type: str):
@@ -1345,7 +1382,7 @@ def training_phase(seed, dev, rows):
 
     log("[profile] training, fused_tower=True")
     adapt = make_flat_streaming_steps(model, s, k, **options)[0]
-    operators, launches = profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=24,
+    operators, launches, _, _ = profile_breakdown(lambda: adapt(ss, *batch), repeats=3, top=24,
                                             unit="step", host_top=10)
     log(f"[training] kernel launches (cudaLaunchKernel) a step {launches:.0f} (before kernels 1 "
         f"and 3 had backward kernels: {STEP_LAUNCHES_BEFORE}, "
@@ -1359,15 +1396,16 @@ def training_phase(seed, dev, rows):
 
 
 def generate_driver_data(root: str, seed: int):
-    """Start generating phase 10's datasets in two spawned processes (the
-    numpy generator takes about half a second a 320x960 frame), so they are
-    written while phases 3-9 run. Returns (pool, futures)."""
+    """Start generating the datasets of phases 10 and 11 in three spawned
+    processes (the numpy generator takes about half a second a 320x960
+    frame), so they are written while phases 3-9 run. Returns (pool,
+    futures)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     from adaptive_stereo_tpu_torch.data import generate_synthetic_dataset
 
-    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    pool = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     h, w = DRIVER_SHAPE
     futures = [
         pool.submit(generate_synthetic_dataset, f"{root}/novel", name="synth",
@@ -1375,7 +1413,10 @@ def generate_driver_data(root: str, seed: int):
                     max_disp=40.0, seed=seed + 50, domain_shift=True),
         pool.submit(generate_synthetic_dataset, f"{root}/train", name="synth",
                     num_train=REPLAY_FRAMES[0], num_val=REPLAY_FRAMES[1], height=h, width=w,
-                    max_disp=40.0, seed=seed)]
+                    max_disp=40.0, seed=seed),
+        pool.submit(generate_synthetic_dataset, f"{root}/train16", name="synth",
+                    num_train=TRAIN_FRAMES[0], num_val=TRAIN_FRAMES[1], height=h, width=w,
+                    max_disp=40.0, seed=seed + 20)]
     return pool, futures
 
 
@@ -1402,7 +1443,8 @@ def driver_phase(seed, dev, rows, card, bare_ms, root, data):
     pool.shutdown()
     log(f"[driver] datasets ready (waited {time.perf_counter() - t0:.1f} s): novel domain "
         f"{DRIVER_FRAMES[0]} + {DRIVER_FRAMES[1]} frames, training domain {REPLAY_FRAMES[0]} + "
-        f"{REPLAY_FRAMES[1]}, {DRIVER_SHAPE[0]}x{DRIVER_SHAPE[1]}")
+        f"{REPLAY_FRAMES[1]} (phase 11's: {TRAIN_FRAMES[0]} + {TRAIN_FRAMES[1]}), "
+        f"{DRIVER_SHAPE[0]}x{DRIVER_SHAPE[1]}")
     k, h, w = 4, *DRIVER_SHAPE
     # The host's cost of one frame's PNG: the generator picks each row's
     # filter as libpng and PIL do (mostly paeth on these images).
@@ -1650,6 +1692,560 @@ def driver_phase(seed, dev, rows, card, bare_ms, root, data):
         raise AssertionError(f"the command line's trials.csv: {cli_rows}")
     log(f"[driver] python -m adaptive_stereo_tpu_torch.cli adapt --engine flat: 4 steps, exit 0, "
         f"{time.perf_counter() - t0:.1f} s; phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return driver_ms
+
+
+@contextlib.contextmanager
+def captured_kernel_calls(calls):
+    """Record each kernel call the model makes (the names plain_versions()
+    swaps) in calls[key]: its inputs and outputs, detached copies, and the
+    gradient that reaches its first output."""
+    import adaptive_stereo_tpu_torch.models.aggregation as agg
+    import adaptive_stereo_tpu_torch.models.stereo_net as sn
+
+    def keep(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {key: keep(v) for key, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(keep(v) for v in x)
+        return x
+
+    def wrap(fn, key):
+        def captured(*args, **kwargs):
+            rec = {"args": keep(args), "kwargs": keep(kwargs)}
+            out = fn(*args, **kwargs)
+            rec["out"] = keep(out)
+            first = out[0] if isinstance(out, tuple) else out
+            if first.requires_grad:
+                first.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone()))
+            calls.setdefault(key, []).append(rec)
+            return out
+        return captured
+
+    swaps = [(sn, "difference_cost_volume_cuda", "cost volume"),
+             (sn, "soft_argmin_fcs_cuda", "soft-argmin"), (sn, "tower_cuda", "tower"),
+             (agg, "aggregate_cost_volume_cuda", "aggregation")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, key in swaps:
+        setattr(mod, name, wrap(getattr(mod, name), key))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_batch(root, indices, dev, domain="train16"):
+    """Items `indices` of one of phase 11's domains as one batch on dev
+    (color and ground truth at scales 0 and 4)."""
+    from adaptive_stereo_tpu_torch.data import StereoDataset
+
+    h, w = DRIVER_SHAPE
+    ds = StereoDataset(f"{root}/{domain}", "Synthetic", "synth", h, w, "train", scales=[0, 4],
+                       load_disp_left=True, load_disp_right=False)
+    items = [ds[i] for i in indices]
+    return {key: torch.from_numpy(np.stack([it[key] for it in items])).to(dev)
+            for key in items[0]}
+
+
+def check_kernel_calls(calls, label, forwards, tower, backward):
+    """Hold every kernel call recorded by captured_kernel_calls against its
+    plain version on that call's own inputs, with phase 8's bands (kernel 1
+    and its backward bitwise; kernel 2's out/mu/var within the aggregation
+    band of its dtype; kernel 3 within DISP_ABS and its backward within
+    1e-5 (1 + max|grad|)) and the tower with phase 7's (bf16: each output's
+    and gradient's error against float32 at most TOWER_BF16_FACTOR times
+    the plain bf16 chain's, gradients + TOWER_F32_GRAD_L2). `forwards`
+    model forwards were recorded, through the tower if `tower`, each with
+    its incoming gradient if `backward`. Returns the failed checks."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (aggregate_cost_volume_ref,
+                                                    difference_cost_volume_ref,
+                                                    soft_argmin_fcs_ref)
+    from adaptive_stereo_tpu_torch.ops.cuda import cost_volume as cv_mod
+    from adaptive_stereo_tpu_torch.ops.cuda import disparity as disp_mod
+
+    want_calls = {"aggregation": forwards, "cost volume": forwards, "soft-argmin": forwards}
+    if tower:
+        want_calls["tower"] = forwards
+    recorded = {key: len(v) for key, v in calls.items()}
+    graded = [key for key, v in calls.items() if key != "aggregation"
+              and any(("grad" in r) != backward for r in v)]
+    if recorded != want_calls or graded:
+        raise AssertionError(f"{label}: kernel calls recorded {recorded} (want {want_calls}); "
+                             f"incoming gradient {'missing' if backward else 'present'} for "
+                             f"{graded}")
+    failed = []
+
+    def report(name, err, limit, ok=None):
+        ok = err <= limit if ok is None else ok
+        log(f"[{label}] {name}: {err:.4g} (limit {limit})")
+        if not ok:
+            failed.append(name)
+
+    with torch.no_grad():
+        for rec in calls["cost volume"]:
+            fl, fr, d = rec["args"]
+            equal = torch.equal(rec["out"], difference_cost_volume_ref(fl, fr, d))
+            bwd_equal = None
+            if backward:
+                g = rec["grad"].contiguous()
+                bwd_equal = all(torch.equal(a, b) for a, b in zip(
+                    cv_mod._launch_backward(g), cv_mod.difference_cost_volume_backward(g)))
+            log(f"[{label}] cost volume {tuple(rec['out'].shape)} {rec['out'].dtype}: bitwise "
+                f"equal {equal}" + ("" if bwd_equal is None else "; its backward kernel on the "
+                                    f"step's gradient bitwise equal {bwd_equal}"))
+            if not equal or bwd_equal is False:
+                failed.append("cost volume")
+        for rec in calls["aggregation"]:
+            cost, params, run_stats = rec["args"]
+            train = rec["kwargs"]["train"]
+            want = aggregate_cost_volume_ref(cost, params, run_stats, train, rec["kwargs"]["eps"])
+            band = (f"{AGG_BF16_ABS} + {AGG_BF16_REL}|ref|" if cost.dtype == torch.bfloat16
+                    else f"{AGG_F32_ABS}")
+            names = ("out", "mu", "var") if train else ("out",)
+            for name, got_t, want_t in zip(names, rec["out"], want):
+                err, ok = agg_band_err(got_t, want_t, cost.dtype)
+                report(f"aggregation {'train' if train else 'eval'} {tuple(cost.shape)} "
+                       f"{cost.dtype} {name}, max abs err", err, band, ok)
+        for rec in calls["soft-argmin"]:
+            (cost,) = rec["args"]
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(rec["out"], soft_argmin_fcs_ref(cost)))
+            report(f"soft-argmin + FCS {tuple(cost.shape)}, max abs err", err, DISP_ABS)
+            if backward:
+                disp, g = rec["out"][0], rec["grad"].contiguous()
+                want = disp_mod.soft_argmin_fcs_backward(cost, disp, g)
+                err = (disp_mod._launch_backward(cost, disp, g) - want).abs().max().item()
+                scale = want.abs().max().item()
+                report(f"soft-argmin backward kernel, max abs err (|grad| max {scale:.3g})", err,
+                       1e-5 * (1 + scale))
+    for rec in calls.get("tower", []):
+        check_tower_call(rec, label, failed)
+    return failed
+
+
+def check_tower_call(rec, label, failed):
+    """The bf16 tower call rec (train mode, with its incoming gradient)
+    against float32 beside the plain bf16 chain (phase 7's bands)."""
+    from adaptive_stereo_tpu_torch.ops.cuda import tower_cuda, tower_ref
+
+    x0, params, run_stats, train, eps = rec["args"]
+    if x0.dtype != torch.bfloat16 or not train:
+        raise AssertionError(f"{label}: tower call {x0.dtype} train={train}; the check holds "
+                             "bf16 train-mode calls")
+    g_out = rec["grad"].float()
+    dt = x0.dtype
+    rounded = {**params, "kernels": [kk.to(dt).float() for kk in params["kernels"]]}
+
+    def leaves(p, x):
+        p = {key: [t.clone().requires_grad_() for t in v] if isinstance(v, list)
+             else v.clone().requires_grad_() for key, v in p.items()}
+        x = x.clone().requires_grad_()
+        return p, x, [x] + p["kernels"] + p["biases"] + [p["gammas"], p["betas"]]
+
+    def tower_grads(fn, p, x):
+        p, x, ls = leaves(p, x)
+        y = fn(x, p)
+        return [t.float() for t in torch.autograd.grad((y[0].float() * g_out).sum(), ls)]
+
+    with torch.no_grad():
+        want = tower_ref(x0.float(), rounded, run_stats, True)
+        plain = tower_ref(x0, rounded, run_stats, True)
+    for name, got_t, want_t, plain_t in zip(("y7", "mu", "var"), rec["out"], want, plain):
+        e_k, e_p = (got_t.float() - want_t).abs(), (plain_t.float() - want_t).abs()
+        log(f"[{label}] tower forward {tuple(x0.shape)} {name}: error vs f32, kernels max "
+            f"{e_k.max().item():.4g} mean {e_k.mean().item():.4g}; plain bf16 max "
+            f"{e_p.max().item():.4g} mean {e_p.mean().item():.4g}")
+        if (e_k.max() > TOWER_BF16_FACTOR * e_p.max()
+                or e_k.mean() > TOWER_BF16_FACTOR * e_p.mean()):
+            failed.append(f"tower forward {name}")
+    del want, plain
+    ref_g = tower_grads(lambda x, p: tower_ref(x, p, run_stats, True), rounded, x0.float())
+    kern_g = tower_grads(lambda x, p: tower_cuda(x, p, run_stats, True, eps), params, x0)
+    plain_g = tower_grads(lambda x, p: tower_ref(x, {**p, "kernels": [kk.to(dt) for kk in
+                                                                     p["kernels"]]},
+                                                 run_stats, True), params, x0)
+    names = ["dx0"] + [f"dW{p}" for p in range(8)] + [f"db{p}" for p in range(8)] + \
+        ["dgamma", "dbeta"]
+    worst = (-1.0, "", 0.0, 0.0)
+    for name, a, pl, r in zip(names, kern_g, plain_g, ref_g):
+        if name in {f"db{p}" for p in range(7)}:
+            continue  # 0 in exact arithmetic: the BatchNorm after the conv removes it
+        e_k, e_p = rel_l2(a, r), rel_l2(pl, r)
+        limit = TOWER_BF16_FACTOR * e_p + TOWER_F32_GRAD_L2
+        worst = max(worst, (e_k / limit, name, e_k, e_p))
+        if e_k > limit:
+            failed.append(f"tower backward {name}: kernels {e_k:.4g}, plain {e_p:.4g}")
+    log(f"[{label}] tower backward {tuple(x0.shape)}: relative L2 error of each gradient vs "
+        f"f32 against {TOWER_BF16_FACTOR} x the plain bf16 chain's + {TOWER_F32_GRAD_L2}; "
+        f"closest to its limit {worst[1]}: kernels {worst[2]:.4g}, plain {worst[3]:.4g} "
+        f"({worst[0]:.2f} of the limit)")
+
+
+def batch8_phase(seed, dev, root):
+    """Phase 11b: one train-mode forward and backward of the bf16 model with
+    fused_siamese and the tower at (TRAIN_BATCH, 320, 960), with the kernels
+    and with their plain versions, from the same weights and batch. Each
+    kernel's call is recorded (inputs, outputs and incoming gradient) and
+    held against its plain version on those inputs (check_kernel_calls).
+    Then, printed, the largest error per output and the relative L2
+    difference per module gradient of the whole step, kernels against
+    plain versions (bf16 rounding compounds through the model, so these
+    have no band of their own; they must be finite), beside the plain
+    versions on another batch for scale."""
+    from adaptive_stereo_tpu_torch.engine import live_parameters
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+    from adaptive_stereo_tpu_torch.ops import khamis_robust_loss_multiscale
+
+    t0 = time.perf_counter()
+    k, s = 4, 0
+    n = TRAIN_BATCH
+    model = random_init_(StereoModel(k=k, input_scale=s, dtype=torch.bfloat16, device=dev,
+                                     fused_siamese=True, fused_tower=True),
+                         torch.Generator().manual_seed(seed + 11))
+    batch_a = train_batch(root, range(n), dev)
+    batch_b = train_batch(root, range(n, 2 * n), dev)
+
+    def loss_grads(batch):
+        m = copy.deepcopy(model).train()
+        out = m(batch["color_l/0"], batch["color_r/0"], side="l")
+        loss = khamis_robust_loss_multiscale(batch, out, scales=[s, s + k])["total_loss"]
+        params = live_parameters(m)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return ({key: v.detach().float() for key, v in out.items()},
+                [torch.zeros_like(p) if g is None else g.float() for g, p in zip(gs, params)])
+
+    calls = {}
+    with captured_kernel_calls(calls):
+        out_k, g_k = loss_grads(batch_a)
+    with plain_versions():
+        out_p, g_p = loss_grads(batch_a)
+        out_c, g_c = loss_grads(batch_b)
+    torch.cuda.synchronize()
+    failed = check_kernel_calls(calls, "batch8", forwards=1, tower=True, backward=True)
+
+    # The whole step, kernels vs plain versions, beside the control.
+    owner = {id(p): name for name, p in model.named_parameters()}
+    modules = {}
+    for i, p in enumerate(live_parameters(model)):
+        name = owner[id(p)]
+        module = ("feature" if name.startswith("feature_net.") else
+                  "tower" if name.startswith("stereo_net.edge_aware_refinements.") else
+                  "aggregation")
+        modules.setdefault(module, []).append(i)
+    cat = lambda gs, idx: torch.cat([gs[i].flatten() for i in idx])
+    for key in out_p:
+        err = (out_k[key] - out_p[key]).abs().max().item()
+        log(f"[batch8] output {key} {tuple(out_p[key].shape)}, kernels vs plain: max abs diff "
+            f"{err:.4g} (|plain| max {out_p[key].abs().max().item():.4g}); control (plain, "
+            f"another batch) {(out_c[key] - out_p[key]).abs().max().item():.4g}")
+        if not torch.isfinite(out_k[key]).all():
+            failed.append(f"output {key} not finite")
+    for module, idx in modules.items():
+        sound, control = rel_l2(cat(g_k, idx), cat(g_p, idx)), rel_l2(cat(g_c, idx), cat(g_p, idx))
+        log(f"[batch8] {module} gradient, kernels vs plain: relative L2 {sound:.4g}; for scale, "
+            f"the plain versions on another batch {control:.4g} and phase 9's limit for one "
+            f"adapt step at batch 2 {STEP_LIMITS['bfloat16'][f'{module} grad']}")
+        if not torch.isfinite(cat(g_k, idx)).all():
+            failed.append(f"{module} gradient not finite")
+    if failed:
+        raise AssertionError(f"batch {n}, kernels vs plain versions: " + "; ".join(failed))
+    log(f"[batch8] batch {n} at {DRIVER_SHAPE[0]}x{DRIVER_SHAPE[1]}: every kernel within its "
+        f"band, {time.perf_counter() - t0:.1f} s")
+    return batch_a
+
+
+def kernel_shapes_phase(seed, dev, root):
+    """Phase 11b, continued: the kernels against their plain versions at
+    the other dtypes and shapes that phase 11's paths give them, each
+    call recorded and checked by check_kernel_calls: the command line's
+    f32 train step at batch 8 (the module path: no fused siamese, no
+    tower), one step of the classic engine (bf16, fused siamese, tower) at
+    batch 1, its stream and replay forwards, and evaluate's f32 eval
+    forward at batch 2."""
+    from adaptive_stereo_tpu_torch.engine import (create_train_state, init_fcs_ema,
+                                                  live_parameters, make_fused_adapt_step)
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+    from adaptive_stereo_tpu_torch.ops import khamis_robust_loss_multiscale
+
+    t0 = time.perf_counter()
+    failed = []
+    gen = lambda i: torch.Generator().manual_seed(seed + 20 + i)
+
+    model = random_init_(StereoModel(k=4, device=dev), gen(0)).train()
+    batch = train_batch(root, range(TRAIN_BATCH), dev)
+    calls = {}
+    with captured_kernel_calls(calls):
+        out = model(batch["color_l/0"], batch["color_r/0"], side="l")
+        loss = khamis_robust_loss_multiscale(batch, out, scales=[0, 4])["total_loss"]
+        torch.autograd.grad(loss, live_parameters(model), allow_unused=True)
+    failed += check_kernel_calls(calls, f"f32 train batch {TRAIN_BATCH}", forwards=1,
+                                 tower=False, backward=True)
+
+    model = random_init_(StereoModel(k=4, dtype=torch.bfloat16, device=dev, fused_siamese=True,
+                                     fused_tower=True), gen(1))
+    step = make_fused_adapt_step(model, 0, 4, use_er=True, use_vs=True, ood_threshold=1e9,
+                                 clip_grad_norm=True)
+    calls = {}
+    with captured_kernel_calls(calls):
+        step(create_train_state(model, None, 5e-5), init_fcs_ema(dev),
+             train_batch(root, [0], dev, "novel"), train_batch(root, [0], dev), True)
+    failed += check_kernel_calls(calls, "classic step batch 1", forwards=2, tower=True,
+                                 backward=True)
+
+    model = random_init_(StereoModel(k=4, device=dev), gen(2)).eval()
+    batch = train_batch(root, range(2), dev, "novel")
+    calls = {}
+    with captured_kernel_calls(calls), torch.no_grad():
+        model(batch["color_l/0"], batch["color_r/0"])
+    failed += check_kernel_calls(calls, "f32 eval batch 2", forwards=1, tower=False,
+                                 backward=False)
+    torch.cuda.synchronize()
+    if failed:
+        raise AssertionError("kernels vs plain versions at phase 11's other shapes: "
+                             + "; ".join(failed))
+    log(f"[kernels11] f32 train at batch {TRAIN_BATCH}, the classic step at batch 1 and f32 "
+        f"eval at batch 2: every kernel call within its band, {time.perf_counter() - t0:.1f} s")
+
+
+def require_launches(label, got, absent):
+    """Fail unless every kernel in `got` ({name: launches}) launched but
+    those in `absent`, which must not have."""
+    wrong = [n for n, c in got.items() if (c == 0) != (n in absent)]
+    if wrong:
+        raise AssertionError(f"{label}: launch counts {got}; wrong: {wrong}")
+
+
+def classic_phase(seed, dev, rows, card, bare_ms, driver_ms, root):
+    """Phase 11: train, the classic engine, evaluate and timing."""
+    import importlib
+    import io
+    import os
+
+    from adaptive_stereo_tpu_torch import cli
+    from adaptive_stereo_tpu_torch.data import read_png
+    from adaptive_stereo_tpu_torch.engine import (create_train_state, load_checkpoint,
+                                                  make_train_step, train)
+    from adaptive_stereo_tpu_torch.experiments import adaptation_config, training_config
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+
+    adapt_mod = importlib.import_module("adaptive_stereo_tpu_torch.engine.adapt")
+    t_phase = time.perf_counter()
+    h, w = DRIVER_SHAPE
+    logs, novel, train16 = (os.path.join(root, name) for name in ("logs11", "novel", "train16"))
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+
+    def reset():
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def counts():
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        return got
+
+    def check_launches(label, absent):
+        got = counts()
+        log(f"[classic] {label}: kernel launches " + ", ".join(f"{n}={c}" for n, c in got.items()))
+        require_launches(label, got, absent)
+
+    def quiet(fn, *args, **kwargs):
+        """fn's console output goes to a buffer (returned with its result)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kwargs)
+        return result, buf.getvalue()
+
+    # (b) The kernels at batch 8 against their plain versions.
+    batch = batch8_phase(seed, dev, root)
+    kernel_shapes_phase(seed, dev, root)
+
+    # (c) train(cfg) at training_config's settings on the synthetic domain.
+    cfg = training_config("SceneFlowFlying", train16, log_dir=logs)
+    cfg.model_name = "train11"
+    cfg.num_epochs, cfg.log_frequency = 2, 1
+    cfg.optim.scheduler_step_size = 1
+    cfg.model.compute_dtype, cfg.model.fused_siamese, cfg.model.s2d_refinement = \
+        "bfloat16", True, True
+    cfg.data.dataset_name, cfg.data.split = "Synthetic", "synth"
+    cfg.data.height, cfg.data.width = h, w
+    reset()
+    t0 = time.perf_counter()
+    result, text = quiet(train, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = result["state"]
+    metrics = result["final_metrics"]
+    log(f"[classic] train: {result['steps']} steps of batch {cfg.data.batch_size} at {h}x{w} "
+        f"k={cfg.model.k} bf16, {cfg.num_epochs} epochs, in {wall:.1f} s with {result['steps']} "
+        f"evals ({result['steps'] / wall:.2f} steps/s); final eval "
+        + ", ".join(f"{key}={v:.4g}" for key, v in metrics.items())
+        + f"; learning rate {state.learning_rate:.6g}")
+    check_launches("train", absent=("coarse_head",))
+    expect_steps = cfg.num_epochs * (TRAIN_FRAMES[0] // cfg.data.batch_size)
+    if result["steps"] != expect_steps or not np.isfinite(metrics["EPE"]):
+        raise AssertionError(f"train: {result['steps']} steps (want {expect_steps}), metrics "
+                             f"{metrics}")
+    if state.learning_rate != np.float32(cfg.optim.learning_rate / 4):
+        raise AssertionError(f"train: learning rate {state.learning_rate}, want it halved twice")
+    weights = os.path.join(logs, "train11", "models", "weights_1")
+    fresh = create_train_state(StereoModel(k=cfg.model.k, dtype=torch.bfloat16, device=dev,
+                                           fused_siamese=True, fused_tower=True),
+                               torch.Generator().manual_seed(seed), 1.0)
+    load_checkpoint(weights, fresh)
+    same = all(torch.equal(a, b) for f in ("params", "buffers", "m", "v")
+               for a, b in zip(getattr(fresh, f), getattr(state, f)))
+    same &= all(torch.equal(getattr(fresh, f), getattr(state, f)) for f in ("count", "step", "lr"))
+    log(f"[classic] train: {sorted(os.listdir(os.path.dirname(weights)))}; weights_1 "
+        f"(the JAX TrainState layout) loads back bit for bit {same}: step {int(fresh.step)}, "
+        f"count {int(fresh.count)}")
+    if not same:
+        raise AssertionError("train: the checkpoint does not load back bit for bit")
+
+    # (d) The bare train step on one batch in memory.
+    model = random_init_(StereoModel(k=4, dtype=torch.bfloat16, device=dev, fused_siamese=True,
+                                     fused_tower=True), torch.Generator().manual_seed(seed + 12))
+    bare = create_train_state(model, None, 1e-4)
+    step = make_train_step(model, 0, [0, 4], True)
+    times = []
+    for i in range(WARMUP_STEPS + BARE_TRAIN_STEPS):
+        if i == WARMUP_STEPS:
+            reset()
+        t0 = time.perf_counter()
+        bare, losses = step(bare, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_step = {name: c / BARE_TRAIN_STEPS for name, c in counts().items()}
+    for row in rows:
+        row["train11_launches"] = per_step[row["name"]]
+    train_ms = statistics.median(times[WARMUP_STEPS:])
+    log(f"[classic] bare train step, batch {TRAIN_BATCH} at {h}x{w} k=4 bf16 (fused siamese, "
+        f"tower, clip): median {train_ms:.2f} ms/step of {BARE_TRAIN_STEPS} after "
+        f"{WARMUP_STEPS} warm-up (the first {times[0]:.1f} ms), {1e3 / train_ms:.2f} steps/s, "
+        f"{TRAIN_BATCH * 1e3 / train_ms:.1f} pairs/s; total loss "
+        f"{float(losses['total_loss']):.4g}; launches per step "
+        + ", ".join(f"{n}={c:g}" for n, c in per_step.items()))
+    require_launches("bare train step", per_step, absent=("coarse_head",))
+    log("[profile] bare train step, batch 8")
+    operators, launches, device_ms_step, busy = profile_breakdown(
+        lambda: step(bare, batch), repeats=3, top=16, unit="step", host_top=6)
+    log(f"[classic] bare train step: device {device_ms_step:.3f} ms/step, busy {busy:.1f} % "
+        f"of wall; {launches:.0f} kernel launches (cudaLaunchKernel) and {operators:.0f} host "
+        f"operators a step; {card}")
+    del model, bare
+
+    # (e) The classic engine from (c)'s checkpoint at adaptation_config's
+    # settings, cut to a smoke run.
+    acfg = adaptation_config("flying_to_vk01", "VS+ER", {}, load_weights_folder=weights,
+                             log_dir=logs, num_steps=12, height=h, width=w, eval_hz=12,
+                             ovs_validate_hz=4)
+    acfg.model_name = "classic11"
+    acfg.model.compute_dtype, acfg.model.fused_siamese, acfg.model.s2d_refinement = \
+        "bfloat16", True, True
+    acfg.data.dataset_path, acfg.data.dataset_name, acfg.data.split = novel, "Synthetic", "synth"
+    acfg.adapt.ovs_buffer_size, acfg.adapt.ood_threshold = 4, 1e9
+    acfg.adapt.train_dataset_path, acfg.adapt.train_dataset_name = train16, "Synthetic"
+    acfg.adapt.train_split, acfg.adapt.skip_initial_eval = "synth", False
+    hook_times, records, validations = [], [], [0]
+    validate = adapt_mod.StateMachine.validate
+
+    def counted_validate(self):
+        validations[0] += 1
+        return validate(self)
+
+    def hook(step_i, record):
+        hook_times.append(time.perf_counter())
+        records.append(record)
+
+    reset()
+    adapt_mod.StateMachine.validate = counted_validate
+    try:
+        t0 = time.perf_counter()
+        summary, text = quiet(adapt_mod.adapt, acfg, step_hook=hook, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        adapt_mod.StateMachine.validate = validate
+    gaps = [(b - a) * 1e3 for a, b in zip(hook_times, hook_times[1:])]
+    classic_ms = statistics.median(gaps)
+    diverted = sum(r["did_add"] for r in records)
+    with open(os.path.join(logs, "classic11", "trials.csv"), newline="") as f:
+        trials = list(csv.reader(f))
+    steps_col = [r[trials[0].index("step")] for r in trials[1:]]
+    log(f"[classic] adapt (the classic engine, {acfg.adapt.adapt_mode}): {summary['steps']} "
+        f"steps in {wall:.1f} s, {summary['gradient_updates']} gradient updates, {diverted} "
+        f"frames diverted to the OVS, {validations[0]} validations, final state "
+        f"{summary['final_state']}; trials.csv steps {steps_col}; final eval "
+        + ", ".join(f"{key}={v:.4g}" for key, v in summary["final_metrics"]["adapt"].items()))
+    log(f"[classic] median interval between classic adapt steps {classic_ms:.2f} ms against "
+        f"the bare train step at batch {TRAIN_BATCH} {train_ms:.2f} ms (above), the bare adapt "
+        f"step {bare_ms:.2f} ms (phase 9) and the flat driver's interval {driver_ms:.2f} ms "
+        f"(phase 10); {card}")
+    check_launches("adapt --engine classic (adapt())", absent=("coarse_head",))
+    if not (summary["steps"] == 12 and summary["gradient_updates"] > 0 and diverted > 0
+            and validations[0] > 0 and steps_col == ["-1", "12"]
+            and all(np.isfinite(r["mono_loss"]) for r in records)):
+        raise AssertionError(f"classic adapt: {summary['steps']} steps, "
+                             f"{summary['gradient_updates']} updates, {diverted} diverted, "
+                             f"{validations[0]} validations, trials steps {steps_col}")
+
+    # (f) The command line.
+    common = ["--dataset_name", "Synthetic", "--split", "synth", "--height", str(h), "--width",
+              str(w), "--stereonet_k", "4", "--stereonet_input_scale", "0", "--log_dir", logs,
+              "--device", dev.type]
+    adapted = os.path.join(logs, "classic11", "models", "weights_12")
+    playback_dir = os.path.join(root, "playback11")
+    commands = {
+        "train": ["train", "--model_name", "cli_train", "--dataset_path", train16,
+                  "--batch_size", str(TRAIN_BATCH), "--num_epochs", "1", "--learning_rate",
+                  "1e-4", "--clip_grad_norm", "--do_hflip", *common],
+        "adapt": ["adapt", "--model_name", "cli_classic", "--dataset_path", novel,
+                  "--batch_size", "1", "--learning_rate", "5e-5", "--clip_grad_norm",
+                  "--adapt_mode", "VS+ER", "--num_steps", "4", "--eval_hz", "4",
+                  "--ovs_buffer_size", "4", "--ovs_validate_hz", "2", "--ood_threshold", "1e9",
+                  "--num_epochs", "1", "--log_frequency", "2", "--train_dataset_path", train16,
+                  "--train_dataset_name", "Synthetic", "--train_split", "synth",
+                  "--load_weights_folder", weights, *common],
+        "evaluate eval": ["evaluate", "--mode", "eval", "--dataset_path", novel,
+                          "--batch_size", "2", "--load_weights_folder", adapted, *common],
+        "evaluate playback": ["evaluate", "--mode", "playback", "--limit", "2",
+                              "--output_folder", playback_dir, "--dataset_path", novel,
+                              "--load_weights_folder", adapted, *common],
+        "timing": ["timing", "--iterations", "20", "--device", dev.type],
+    }
+    # The command line builds the module path (no tower flag, as in JAX's
+    # parser): kernels 1-3, and the backward kernels where it trains.
+    module_path = ("coarse_head", "tower_forward", "tower_backward")
+    forward_only = module_path + ("difference_cost_volume backward", "soft_argmin_fcs backward")
+    absent = {"train": module_path, "adapt": module_path, "evaluate eval": forward_only,
+              "evaluate playback": forward_only, "timing": module_path}
+    outputs = {}
+    for label, argv in commands.items():
+        reset()
+        t0 = time.perf_counter()
+        rc, outputs[label] = quiet(cli.main, argv)
+        if rc != 0:
+            raise AssertionError(f"{label}: exit {rc}")
+        log(f"[classic] python -m adaptive_stereo_tpu_torch.cli {' '.join(argv[:3])} ...: exit 0 "
+            f"in {time.perf_counter() - t0:.1f} s")
+        check_launches(f"cli {label}", absent=absent[label])
+    line = [ln for ln in outputs["evaluate eval"].splitlines() if ln.startswith("EVAL")][-1]
+    epe = float(line.split("EPE=")[1].split()[0])
+    log(f"[classic] evaluate --mode eval on the adapted checkpoint: {line}")
+    shapes = [read_png(os.path.join(playback_dir, f"{i:06d}.png")).shape for i in range(2)]
+    log(f"[classic] evaluate --mode playback: PNGs {shapes} (decoded by data/png.py); "
+        + "; ".join(ln for ln in outputs["evaluate playback"].splitlines()
+                    if ln.startswith(("[playback]", "Playback"))))
+    timing = [ln for ln in outputs["timing"].splitlines() if ln.startswith("-- Timing")]
+    log(f"[classic] timing at its defaults (320x1216, k=4, bf16, batch 1, 20 iterations): "
+        + "; ".join(timing) + f"; {card}")
+    if not np.isfinite(epe) or shapes != [(h, 3 * w, 3)] * 2 or len(timing) != 2:
+        raise AssertionError(f"command line: EPE {epe}, playback {shapes}, timing {timing}")
+    log(f"[classic] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1900,9 +2496,12 @@ def main() -> int:
     # Phase 9: training.
     bare_ms = training_phase(args.seed, dev, rows)
     # Phase 10: the streaming adaptation driver.
-    driver_phase(args.seed, dev, rows, card, bare_ms, driver_root.name, driver_data)
+    driver_ms = driver_phase(args.seed, dev, rows, card, bare_ms, driver_root.name, driver_data)
+    # Phase 11: train, the classic engine, evaluate and timing.
+    classic_phase(args.seed, dev, rows, card, bare_ms, driver_ms, driver_root.name)
     driver_root.cleanup()
-    keys = ("name", "route", "source", "replaces", "launches", "train_launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "launches", "train_launches",
+            "train11_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
             "backward_plain_ms", "backward_bound_ms", "backward_train_launches")
     for row in rows:

@@ -19,8 +19,9 @@
 - a resumed run equal to an uninterrupted one, bit for bit, with the
   reservoir's random draws deciding (capacity 2);
 - the command line: a run from a checkpoint the port wrote, and the named
-  errors (a bogus --adapt_mode, no weights, a missing folder, the engines
-  and subcommands not ported yet, the classic engine's flag checks).
+  errors (a bogus --adapt_mode, no weights, a missing folder, the engine
+  and option not ported yet, the classic engine's flag checks, and the
+  classic engine's reconstruction gate, which needs the autoencoder).
 """
 
 import csv
@@ -39,6 +40,7 @@ import adaptive_stereo_tpu_torch.engine.stream_driver as port_driver
 from adaptive_stereo_tpu.engine.adapt import State as JaxState
 from adaptive_stereo_tpu.engine.checkpoint import load_variables as jax_load
 from adaptive_stereo_tpu_torch.cli import main
+from adaptive_stereo_tpu_torch.engine import adapt as adapt_classic
 from adaptive_stereo_tpu_torch.data import generate_synthetic_dataset
 from adaptive_stereo_tpu_torch.engine import LOG_COLS, State, load_stream_checkpoint, save_variables
 from adaptive_stereo_tpu_torch.engine.flat_stream import init_flat_stream_state
@@ -404,8 +406,6 @@ def test_cli_named_errors(data, tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         main(args("--engine", "flat", "--device", "cpu", "--load_weights_folder",
                   str(tmp_path / "missing")))
-    with pytest.raises(SystemExit, match="--engine classic .* not ported yet"):
-        main(args("--load_weights_folder", str(tmp_path)))
     with pytest.raises(SystemExit, match="--engine pytree .* not ported yet"):
         main(args("--engine", "pytree"))
     with pytest.raises(SystemExit, match="--ovs_guard_lr_factor require"):
@@ -416,6 +416,7 @@ def test_cli_named_errors(data, tmp_path):
         main(args("--loss_dtype", "bfloat16"))
     with pytest.raises(NotImplementedError, match="device_cache .* not ported yet"):
         main(args("--engine", "flat", "--device", "cpu", "--device_cache"))
-    for command in (["train"], ["evaluate"], ["timing"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            main(command)
+    gated = port_config.ExperimentConfig(log_dir=str(tmp_path),
+                                         adapt=port_config.AdaptConfig(gate="reconstruction"))
+    with pytest.raises(NotImplementedError, match="gate='reconstruction' .*autoencoder"):
+        adapt_classic(gated, variables=data[2], device="cpu")

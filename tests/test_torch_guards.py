@@ -83,6 +83,23 @@ def test_driver_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize("argv", [["train"], ["adapt"], ["evaluate", "--mode", "eval"],
+                                  ["evaluate", "--mode", "playback"], ["timing"]])
+def test_offline_commands_raise_without_cuda(argv, monkeypatch, tmp_path):
+    """train, adapt (the classic engine, the default), evaluate and timing
+    run on CUDA unless given --device cpu: without CUDA they raise before
+    writing anything, and no path falls back to the CPU."""
+    from adaptive_stereo_tpu_torch.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    folders = ["--log_dir", str(tmp_path), "--load_weights_folder", str(tmp_path)]
+    extra = {"train": folders, "adapt": folders, "timing": [],
+             "evaluate": folders + ["--output_folder", str(tmp_path / "out")]}[argv[0]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv + extra)
+    assert not any(tmp_path.iterdir())
+
+
 def test_kernel_modules_import_without_cuda_or_nvcc(tmp_path):
     """A fresh interpreter with no GPU and no nvcc imports every module of
     the port; nothing is built or loaded."""

@@ -11,7 +11,11 @@ their plain versions and the voxel-scale resizes are F.interpolate.
 Tolerances: disparity 2e-3 absolute + 1e-4 relative (the model band of
 tests/test_model_parity.py); depth is fx*b/disp, so 1e-4 relative + 1e-3 m
 absolute covers that band; points are compared after sorting rows, at
-1e-3 absolute.
+1e-3 absolute. The on_disparity images (the voxel-scale disparity through
+the magma table): the port's equal bit for bit to the colormap of its own
+voxel-scale disparity, and JAX's within one step of the 256-entry table
+(a disparity within the band may sit on the other side of a bin's edge)
+with at most 1 % of the pixels apart.
 """
 
 import cv2
@@ -22,20 +26,27 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from adaptive_stereo_tpu.data import StereoDataset as JaxStereoDataset
 from adaptive_stereo_tpu.models import StereoModel as JaxStereoModel
 from adaptive_stereo_tpu.serving import (
     ServingConfig as JaxServingConfig,
     StereoDepthEngine as JaxEngine,
+    replay_dataset_stream as jax_replay,
 )
+from adaptive_stereo_tpu_torch.data import StereoDataset, generate_synthetic_dataset
 from adaptive_stereo_tpu_torch.models import state_dicts_from_jax
 from adaptive_stereo_tpu_torch.serving import (
     AsyncStereoDepthEngine,
     ServingConfig,
     StereoDepthEngine,
+    replay_dataset_stream,
     voxel_downsample,
 )
+from adaptive_stereo_tpu_torch.utils.visualization import MAGMA_RGB, apply_disparity_colormap
 
 H, W, K = 64, 128, 3
+# The largest difference of two neighbouring magma entries.
+LUT_STEP = np.abs(np.diff(MAGMA_RGB, axis=0)).max()
 INTRINSICS = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1.0]])
 DISP_TOL = dict(atol=2e-3, rtol=1e-4)
 
@@ -158,8 +169,6 @@ def test_voxel_downsample_merges():
 def test_engine_refuses_what_is_not_ported(setup):
     variables, _ = setup
     sds = state_dicts_from_jax(variables, K)
-    with pytest.raises(NotImplementedError, match="colormap"):
-        StereoDepthEngine(_config(ServingConfig), sds, on_disparity=print, device="cpu")
     fused = StereoDepthEngine(_config(ServingConfig, fused_coarse_head=True), sds, device="cpu")
     assert fused.model.stereo_net.fused_coarse_head
     engine = StereoDepthEngine(_config(ServingConfig), sds, device="cpu")
@@ -179,3 +188,52 @@ def test_engine_loads_a_reference_weights_folder(setup, tmp_path):
     left, right = frames[0]
     np.testing.assert_array_equal(a.process(left, right)["disparity"],
                                   b.process(left, right)["disparity"])
+
+
+def test_on_disparity_matches_jax(setup):
+    """Every frame publishes at publish_disp_hz 1e6; at 1e-3 only the first
+    does (the rate limit)."""
+    variables, frames = setup
+    for hz, published in ((1e6, len(frames)), (1e-3, 1)):
+        calls = {"jax": [], "port": []}
+        ref_engine = JaxEngine(_config(JaxServingConfig, publish_disp_hz=hz), variables,
+                               on_disparity=lambda *a: calls["jax"].append(a))
+        engine = StereoDepthEngine(_config(ServingConfig, publish_disp_hz=hz),
+                                   state_dicts_from_jax(variables, K), device="cpu",
+                                   on_disparity=lambda *a: calls["port"].append(a))
+        outs = []
+        for i, (left, right) in enumerate(frames):
+            ref_engine.process(left, right, timestamp=float(i))
+            outs.append(engine.process(left, right, timestamp=float(i)))
+        assert len(calls["port"]) == len(calls["jax"]) == published
+        for (img, scale, ts), (ref_img, ref_scale, ref_ts), out in zip(calls["port"],
+                                                                      calls["jax"], outs):
+            assert (scale, ts) == (ref_scale, ref_ts) == (2, ts)
+            assert img.shape == ref_img.shape == (H // 4, W // 4, 3)
+            assert img.dtype == ref_img.dtype == np.float32
+            disp_v = F.interpolate(torch.from_numpy(out["disparity"])[None, None],
+                                   size=(H // 4, W // 4), mode="bilinear",
+                                   align_corners=False)[0, 0].numpy()
+            np.testing.assert_array_equal(img, apply_disparity_colormap(disp_v))
+            diff = np.abs(img - ref_img)
+            assert diff.max() <= LUT_STEP and (diff > 0).any(axis=-1).mean() <= 0.01
+
+
+def test_replay_dataset_stream_matches_jax(setup, tmp_path):
+    variables, _ = setup
+    generate_synthetic_dataset(str(tmp_path), name="synth", num_train=2, num_val=3, height=H,
+                               width=W, max_disp=12.0, seed=6)
+    kw = dict(scales=[0], load_disp_right=False)
+    dataset = StereoDataset(str(tmp_path), "Synthetic", "synth", H, W, "val", **kw)
+    ref_dataset = JaxStereoDataset(str(tmp_path), "Synthetic", "synth", H, W, "val", **kw)
+    stamps = []
+    engine = StereoDepthEngine(_config(ServingConfig), state_dicts_from_jax(variables, K),
+                               on_pointcloud=lambda p, c, t: stamps.append(t), device="cpu")
+    got = replay_dataset_stream(engine, dataset, num_frames=2)
+    want = jax_replay(JaxEngine(_config(JaxServingConfig), variables), ref_dataset,
+                      num_frames=2)
+    assert len(got) == len(want) == 2 and stamps == [0.0, 1.0]
+    for out, ref in zip(got, want):
+        np.testing.assert_allclose(out["disparity"], ref["disparity"], **DISP_TOL)
+        np.testing.assert_allclose(out["depth"], ref["depth"], rtol=1e-4, atol=1e-3)
+    assert len(replay_dataset_stream(engine, dataset)) == 3
