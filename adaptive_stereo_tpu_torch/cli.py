@@ -4,14 +4,14 @@ flag checks:
 
     python -m adaptive_stereo_tpu_torch.cli train --dataset_path ... --split ...
     python -m adaptive_stereo_tpu_torch.cli adapt --adapt_mode VS+ER ...
-    python -m adaptive_stereo_tpu_torch.cli adapt --engine flat ...
+    python -m adaptive_stereo_tpu_torch.cli adapt --engine flat [--device_cache] ...
+    python -m adaptive_stereo_tpu_torch.cli adapt --engine pytree ...
     python -m adaptive_stereo_tpu_torch.cli evaluate --mode playback ...
     python -m adaptive_stereo_tpu_torch.cli timing
 
 Flag names match the reference's (reference train.py:246-301). --device
 (default cuda; every subcommand) is the one flag the JAX parser lacks; it
-changes no result. `adapt --engine pytree` and `--device_cache` are not
-ported yet and exit with a message that says so.
+changes no result.
 """
 
 from __future__ import annotations
@@ -210,12 +210,6 @@ def options_to_config(opt) -> ExperimentConfig:
     )
 
 
-def _not_ported(what: str, where: str):
-    raise SystemExit(f"{what} ({where}) is not ported yet to adaptive_stereo_tpu_torch; "
-                     "use `adapt --engine classic` or `--engine flat`, or the JAX package "
-                     "(python -m adaptive_stereo_tpu.cli)")
-
-
 def main(argv=None) -> int:
     opt = build_parser().parse_args(argv)
 
@@ -265,8 +259,6 @@ def main(argv=None) -> int:
 
             adapt(cfg, splits_root=opt.splits_root, train_splits_root=opt.train_splits_root,
                   device=opt.device)
-        elif opt.engine == "pytree":
-            _not_ported("--engine pytree", "engine/stream_adapt.py")
         else:
             from .engine.stream_driver import adapt_streaming
 

@@ -1,8 +1,11 @@
 """Data layer (counterpart of adaptive_stereo_tpu/data/): split-file
 datasets, image and disparity IO (PNG through data/png.py), the threaded
-batch loader and the synthetic dataset generator."""
+batch loader, the synthetic dataset generator and the native host library
+(data/native.py)."""
 
 from .io import read_flo, read_float3, read_pfm, write_flo, write_float3, write_pfm
+from .native import (pfm_read_native, resize_bilinear_native, u8_to_f32_native,
+                     voxel_downsample_native)
 from .loaders import DATASET_BASELINES_M, get_disp_loader, get_intrinsics_normalized
 from .png import decode_png, encode_png, read_png, write_png
 from .splits import read_lines
@@ -21,8 +24,12 @@ __all__ = [
     "read_flo",
     "read_float3",
     "read_lines",
+    "pfm_read_native",
     "read_pfm",
     "read_png",
+    "resize_bilinear_native",
+    "u8_to_f32_native",
+    "voxel_downsample_native",
     "write_flo",
     "write_float3",
     "write_pfm",

@@ -1,7 +1,8 @@
 """Per-dataset disparity loaders and camera metadata (counterpart of
 adaptive_stereo_tpu/data/loaders.py:19-92). The 16-bit PNGs of KITTI and
-VKITTI are decoded by data/png.py, SceneFlow's PFMs by the numpy reader of
-data/io.py.
+VKITTI are decoded by data/png.py, SceneFlow's PFMs by the native host
+library (data/native.py pfm_read_native, as the JAX loader when its library
+is built; the port has no fallback to data/io.py's numpy reader).
 
 Behavioral contract from reference adaptive_stereo/utils/dataset_utils.py:26-57
 and datasets/stereo_dataset.py:147-184:
@@ -18,12 +19,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from .io import read_pfm
+from .native import pfm_read_native
 from .png import read_png
 
 
 def load_disp_sceneflow(path: str) -> np.ndarray:
-    data, _scale = read_pfm(path)
+    data, _scale = pfm_read_native(path)
     if data.ndim == 3:
         data = data[..., 0]
     return data.astype(np.float32)[..., None]

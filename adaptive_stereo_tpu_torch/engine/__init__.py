@@ -1,9 +1,9 @@
 """Training and online adaptation engines (counterpart of
 adaptive_stereo_tpu/engine/): the supervised trainer (train), the classic
 adaptation engine (adapt) with its steps, the streaming adapt, done and
-validate steps, the device reservoir, the streaming driver
-(adapt_streaming), the eval step and loop, the offline inference tools,
-configuration, the train state and checkpoints."""
+validate steps, the device reservoir, the device frame caches, the
+streaming driver (adapt_streaming), the eval step and loop, the offline
+inference tools, configuration, the train state and checkpoints."""
 
 from .adapt import State, StateMachine, adapt
 from .checkpoint import load_checkpoint, load_variables, save_checkpoint, save_variables
@@ -12,6 +12,7 @@ from .config import (AdaptConfig, DataConfig, ExperimentConfig, ModelConfig, Opt
 from .device_reservoir import (DeviceReservoir, init_device_reservoir,
                                reservoir_average_value, reservoir_maybe_add,
                                reservoir_set_values)
+from .device_cache import DeviceCachedLoader, DeviceStreamCache
 from .evaluate import evaluate
 from .flat_stream import (LOG_COLS, FlatStreamState, init_flat_stream_state,
                           make_flat_streaming_steps)
@@ -35,6 +36,8 @@ __all__ = [
     "clip_stereo_net_grads",
     "create_train_state",
     "DataConfig",
+    "DeviceCachedLoader",
+    "DeviceStreamCache",
     "DeviceReservoir",
     "epe",
     "evaluate",

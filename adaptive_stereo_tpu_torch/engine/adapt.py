@@ -18,8 +18,9 @@ next frame, which is this engine's nature. The streaming driver
 Differences from the JAX engine:
 - OVS validation batches the live pairs only (no padding to the buffer's
   capacity, which served one XLA program for every fill).
-- gate="reconstruction" (models/autoencoder.py) is not ported yet and
-  raises NotImplementedError.
+- The reconstruction gate's variables are the gate model's state dict
+  (analysis/reconstruction_ood.py train_autoencoder returns it), not flax
+  parameters.
 - `device` (a port-only argument, "cuda" unless the caller passes "cpu")
   picks where the model and the state live.
 """
@@ -38,7 +39,7 @@ import torch
 
 from ..data import BatchLoader, StereoDataset
 from ..device import DeviceLike, resolve_device, to_device
-from ..models import build_model
+from ..models import build_model, reconstruction_error
 from ..ops import online_ema
 from ..utils.logging_utils import MetricsWriter, TrialsLog, write_opt_json
 from ..utils.stereo_priority_queue import StereoPriorityQueue
@@ -175,8 +176,27 @@ class StateMachine:
         return self.ovs.size()
 
 
+def make_reconstruction_gate(gate_model: torch.nn.Module, kind: str = "ae"):
+    """The gate score of gate="reconstruction": the mean L1 reconstruction
+    error of the left image under an AE ("ae") or VAE ("vae") of
+    models/autoencoder.py (the graveyard OOD signal, reference
+    graveyard/adapt_vae.py ~:400: `torch.abs(decoded - input).mean()`).
+    The VAE decodes from mu, so the score is deterministic. Returns
+    gate_apply(params, left) -> () float32 tensor, params the model's
+    weights (a state dict on left's device), computed without gradient."""
+    if kind not in ("ae", "vae"):
+        raise ValueError(f"unknown gate kind {kind!r}: 'ae' or 'vae'")
+
+    def gate_apply(params: Dict[str, torch.Tensor], left: torch.Tensor) -> torch.Tensor:
+        return reconstruction_error(gate_model, params, left, kind == "vae").mean()
+
+    return gate_apply
+
+
 def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
           splits_root: Optional[str] = None, train_splits_root: Optional[str] = None,
+          gate_model: Optional[torch.nn.Module] = None,
+          gate_variables: Optional[Dict[str, torch.Tensor]] = None, gate_kind: str = "ae",
           step_hook=None, device: DeviceLike = None) -> Dict:
     """Run online adaptation per the reference protocol (adapt.py:187-443).
 
@@ -185,6 +205,12 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
       reference's .pth pair).
     splits_root / train_splits_root: split-directory overrides of the
       stream and of the training-domain (replay, train-val) dataset.
+    gate_model / gate_variables / gate_kind: with cfg.adapt.gate ==
+      "reconstruction", the trained AE ("ae") or VAE ("vae") whose
+      reconstruction error replaces FCS as the novelty signal, and its
+      weights (a state dict; analysis/reconstruction_ood.py
+      train_autoencoder returns both): novel iff the error >
+      cfg.adapt.ood_threshold, in the IN_PROGRESS and the DONE state.
     step_hook(step, record): called once per stream frame with fcs_raw,
       fcs_smoothed, novel, did_add, do_update, mono_loss, replay_loss, epe
       and state (the JAX engine's records).
@@ -197,6 +223,10 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
     mc, ac, dc, oc = cfg.model, cfg.adapt, cfg.data, cfg.optim
     s, k = mc.input_scale, mc.k
     check_gate(ac.gate)
+    use_recon_gate = ac.gate == "reconstruction"
+    if use_recon_gate and (gate_model is None or gate_variables is None):
+        raise ValueError("cfg.adapt.gate='reconstruction' requires gate_model and "
+                         "gate_variables (see analysis/reconstruction_ood.py train_autoencoder)")
     log_path = os.path.join(cfg.log_dir, cfg.model_name)
     write_opt_json(log_path, cfg)
 
@@ -250,12 +280,16 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
         # uses batch_size=1.
         raise ValueError("VS adaptation modes require batch_size=1")
 
+    gate_apply = gate_params = None
+    if use_recon_gate:
+        gate_apply = make_reconstruction_gate(gate_model, gate_kind)
+        gate_params = {name: t.to(dev) for name, t in gate_variables.items()}
     fused_step = make_fused_adapt_step(
         model, s, k, smoothness_weight=ac.smoothness_weight,
         er_loss_weight=ac.er_loss_weight, use_er=use_er, use_vs=use_vs,
         ood_threshold=ac.ood_threshold, fcs_ema_weight=ac.fcs_ema_weight,
         clip_grad_norm=oc.clip_grad_norm, use_leftright=ac.leftright_consistency,
-        consistency_weight=ac.consistency_weight, gate=ac.gate,
+        consistency_weight=ac.consistency_weight, gate=ac.gate, gate_apply=gate_apply,
         warp_precision=ac.warp_precision)
     infer = make_infer_step(model, s, k, smoothness_weight=ac.smoothness_weight,
                             warp_precision=ac.warp_precision)
@@ -295,7 +329,14 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
         return dict(zip(present, values))
 
     scalar_keys = ("fcs_raw", "fcs_smoothed", "novel", "do_update", "Monodepth/total_loss",
-                   "Replay/total_loss", "EPE")
+                   "Replay/total_loss", "EPE", "gate_score")
+
+    def novel_message(vals):
+        if use_recon_gate:
+            return (f"[ OOD ] Novel image detected! recon_loss={vals['gate_score']:.5f} "
+                    f"threshold={ac.ood_threshold:.5f}")
+        return (f"[ OOD ] Novel image detected! fcs_raw={vals['fcs_raw']:.3f} "
+                f"fcs_smoothed={fcs_smoothed:.3f} threshold={ac.ood_threshold:.3f}")
     epoch, step, gradient_updates = 0, 0, 0
     fcs_smoothed = None           # host mirror of the device EMA
     ema = init_fcs_ema(dev)       # device-side EMA of the fused step
@@ -326,14 +367,13 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
                 pre = sm.ovs.pre_decide(batch_idx) if use_vs else None
                 er_batch = er_item(step) if use_er else batch
                 state, ema, aux = fused_step(state, ema, batch, er_batch,
-                                             pre.add if pre else False)
+                                             pre.add if pre else False, gate_params)
                 vals = host_scalars(aux, scalar_keys)
                 fcs_raw, fcs_smoothed = vals["fcs_raw"], vals["fcs_smoothed"]
                 image_is_novel = bool(vals["novel"])
                 did_add_to_ovs = False
                 if use_vs and image_is_novel:
-                    print(f"[ OOD ] Novel image detected! fcs_raw={fcs_raw:.3f} "
-                          f"fcs_smoothed={fcs_smoothed:.3f} threshold={ac.ood_threshold:.3f}")
+                    print(novel_message(vals))
                     did_add_to_ovs = sm.commit_novel(
                         pre, batch[f"color_l/{s}"], batch[f"color_r/{s}"],
                         vals["Monodepth/total_loss"], batch_idx)
@@ -347,6 +387,8 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
                           "was diverted to the OVS.")
             else:
                 aux, _pred = infer(batch)
+                if use_recon_gate:
+                    aux["gate_score"] = gate_apply(gate_params, batch[f"color_l/{s}"])
                 vals = host_scalars(aux, scalar_keys)
                 fcs_raw = vals["fcs_raw"]
                 fcs_smoothed = fcs_raw if fcs_smoothed is None else online_ema(
@@ -354,10 +396,12 @@ def adapt(cfg: ExperimentConfig, variables: Optional[dict] = None,
                 # Keep the device EMA consistent for a possible restart.
                 ema[0].fill_(fcs_smoothed)
                 ema[1].fill_(True)
-                image_is_novel = fcs_smoothed < ac.ood_threshold
+                if use_recon_gate:
+                    image_is_novel = vals["gate_score"] > ac.ood_threshold
+                else:
+                    image_is_novel = fcs_smoothed < ac.ood_threshold
                 if use_vs and image_is_novel:
-                    print(f"[ OOD ] Novel image detected! fcs_raw={fcs_raw:.3f} "
-                          f"fcs_smoothed={fcs_smoothed:.3f} threshold={ac.ood_threshold:.3f}")
+                    print(novel_message(vals))
                     # DONE state: the classic add path (restarts adaptation).
                     sm.add_to_ovs(batch[f"color_l/{s}"], batch[f"color_r/{s}"],
                                   vals["Monodepth/total_loss"], batch_idx)

@@ -17,7 +17,9 @@ import torch
 def evaluate(eval_step, model: torch.nn.Module, loader, fast_eval: bool = False,
              num_steps: int = -1) -> Dict[str, float]:
     """eval_step from engine/steps.py:make_eval_step(model, ...); the loader's
-    numpy batches are copied to the model's device (non_blocking)."""
+    numpy batches are copied to the model's device (non_blocking), and
+    tensors already there (engine/device_cache.py DeviceCachedLoader) are
+    taken as they are."""
     num_batches = len(loader) // 10 if fast_eval else len(loader)
     if num_steps > 0:
         num_batches = min(num_steps // loader.batch_size, len(loader))
@@ -28,8 +30,8 @@ def evaluate(eval_step, model: torch.nn.Module, loader, fast_eval: bool = False,
     for i, batch in enumerate(loader):
         if i >= num_batches:
             break
-        device_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-                        for k, v in batch.items()}
+        device_batch = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))).to(device, non_blocking=True) for k, v in batch.items()}
         metrics = eval_step(device_batch)
         for k, v in metrics.items():
             acc.setdefault(k, []).append(float(v))

@@ -25,11 +25,19 @@ leaves the count, the moments and the parameters unchanged; the BatchNorm
 running statistics update on every adapt step, skipped or not.
 
 Options of the JAX engine, all ported: images_uint8 (uint8 frames,
-dequantized on the device as f32 / 255), use_leftright with
+dequantized on the device as f32 / 255, dequantize_u8), use_leftright with
 consistency_weight (the flipped-batch left-right consistency loss),
 loss_dtype (the single-sided loss in a reduced dtype, cast back to f32),
 warp_precision and make_done_step_batched (N done steps in one eval
 forward).
+
+The JAX package's structured engine (engine/stream_adapt.py, `adapt
+--engine pytree`) computes this engine's step with fused_er_forward=False
+(the replay frame as a second, sequential train-mode forward), float32
+frames and one done frame per forward; its only extra state, train.step,
+counts frames as log_pos does and no output reads it. The JAX split exists
+for XLA's dispatch cost; here both are the same tensors, so the driver
+runs engine="pytree" as this engine with those settings.
 
 Deviations from the JAX engine, both named in make_flat_streaming_steps:
 - warp_precision: the port's warp is exact (F.grid_sample), which is the
@@ -80,6 +88,15 @@ class FlatStreamState:
     # The model's live BatchNorm running statistics (live_buffers), which
     # the train-mode forward updates in place: the JAX state's `bn`.
     buffers: List[torch.Tensor] = field(default_factory=list)
+
+
+def dequantize_u8(img: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> float32 / 255, correctly rounded as the dataset's
+    host-side float32 division is, so uint8 frames give the float32 path's
+    bits. The divisor is a tensor on the frame's device: PyTorch's CUDA
+    division by a Python scalar multiplies by its rounded reciprocal, which
+    moves 126 of the 256 levels by an ulp on an H100."""
+    return img.to(torch.float32) / torch.full((), 255.0, device=img.device)
 
 
 def init_flat_stream_state(model: torch.nn.Module, learning_rate: float, capacity: int,
@@ -166,7 +183,7 @@ def make_flat_streaming_steps(
         consistency_weight=consistency_weight, loss_dtype=loss_dtype)
 
     def dec(img):
-        return img.to(torch.float32) / 255.0 if images_uint8 else img
+        return dequantize_u8(img) if images_uint8 else img
 
     def gate(ss, fcs_raw, left, right, mono, frame_idx):
         smoothed = smoothed_fcs(ss.ema_value, ss.ema_init, fcs_raw, fcs_ema_weight)

@@ -14,9 +14,8 @@ The adaptation losses are the flat engine's pieces (make_forward_losses,
 the gate arithmetic smoothed_fcs, clip_stereo_net_grads and the masked Adam
 of engine/state.py), so the two engines compute one step the same way.
 
-Not ported: gate="reconstruction" needs models/autoencoder.py and raises
-NotImplementedError. warp_precision other than "highest" raises ValueError
-(the port's warp is exact; see engine/flat_stream.py).
+warp_precision other than "highest" raises ValueError (the port's warp is
+exact; see engine/flat_stream.py).
 """
 
 from __future__ import annotations
@@ -87,12 +86,8 @@ def loss_compute_dtype(loss_dtype, use_leftright: bool) -> Optional[torch.dtype]
 
 
 def check_gate(gate: str) -> None:
-    """The novelty gates of the port: 'fcs'."""
-    if gate == "reconstruction":
-        raise NotImplementedError(
-            "gate='reconstruction' needs the autoencoder of models/autoencoder.py, which is "
-            "not ported yet; use gate='fcs'")
-    if gate != "fcs":
+    """The novelty gates: 'fcs' and 'reconstruction'."""
+    if gate not in ("fcs", "reconstruction"):
         raise ValueError(f"unknown gate {gate!r}")
 
 
@@ -384,15 +379,25 @@ def make_fused_adapt_step(model: torch.nn.Module, input_scale: int, k: int,
         do_update = ~did_add
 
     use_leftright: the flipped-batch left-right consistency loss; FCS from
-    the left-centred row. gate: "fcs" only ("reconstruction" raises
-    NotImplementedError: models/autoencoder.py is not ported).
+    the left-centred row.
+    gate: the novelty signal of the gate (VS modes). "fcs": novel iff the
+    smoothed FCS < ood_threshold (the reference's live path,
+    adapt.py:351-378). "reconstruction": novel iff gate_apply(gate_params,
+    left), the image's reconstruction error under an AE / VAE
+    (engine/adapt.py make_reconstruction_gate), exceeds ood_threshold, raw,
+    with no EMA (the reference's graveyard/adapt_vae.py); the FCS EMA is
+    still computed and logged.
 
-    Returns step(state, ema, batch, er_batch, would_add_if_novel) ->
-    (state, ema, aux): ema = (value, initialized) () tensors (updated in
-    place and returned), would_add_if_novel a bool or () bool tensor, aux
-    the detached 0-d tensors fcs_raw, fcs_smoothed, novel, did_add,
-    do_update, the losses and EPE (when the batch has ground truth)."""
+    Returns step(state, ema, batch, er_batch, would_add_if_novel,
+    gate_params=None) -> (state, ema, aux): ema = (value, initialized) ()
+    tensors (updated in place and returned), would_add_if_novel a bool or
+    () bool tensor, gate_params the gate model's weights (required by the
+    reconstruction gate), aux the detached 0-d tensors fcs_raw,
+    fcs_smoothed, novel, did_add, do_update, the losses, EPE (when the
+    batch has ground truth) and gate_score (reconstruction gate)."""
     check_gate(gate)
+    if gate == "reconstruction" and gate_apply is None:
+        raise ValueError("gate='reconstruction' requires gate_apply")
     check_warp_precision(warp_precision)
     coarse = input_scale + k
     s = input_scale
@@ -401,7 +406,8 @@ def make_fused_adapt_step(model: torch.nn.Module, input_scale: int, k: int,
                                             consistency_weight=consistency_weight)
     gt_key = f"gt_disp_l/{s}"
 
-    def step(state: TrainState, ema, batch: Batch, er_batch: Batch, would_add_if_novel):
+    def step(state: TrainState, ema, batch: Batch, er_batch: Batch, would_add_if_novel,
+             gate_params=None):
         model.train()
         er = er_batch if use_er else batch
         total, mono, replay, pred, fcs_outputs = forward_losses(
@@ -414,8 +420,12 @@ def make_fused_adapt_step(model: torch.nn.Module, input_scale: int, k: int,
         smoothed = smoothed_fcs(ema_value, ema_init, fcs_raw, fcs_ema_weight)
         ema_value.copy_(smoothed)
         ema_init.fill_(True)
+        gate_score = None
+        if gate == "reconstruction":
+            # High reconstruction error means novel (graveyard direction).
+            gate_score = gate_apply(gate_params, batch[f"color_l/{s}"])
         if use_vs:
-            novel = smoothed < ood_threshold
+            novel = smoothed < ood_threshold if gate_score is None else gate_score > ood_threshold
             did_add = novel & torch.as_tensor(would_add_if_novel, device=novel.device)
         else:
             novel = torch.zeros((), dtype=torch.bool, device=fcs_raw.device)
@@ -431,6 +441,8 @@ def make_fused_adapt_step(model: torch.nn.Module, input_scale: int, k: int,
             aux["Replay/total_loss"] = replay.detach()
         aux.update(fcs_raw=fcs_raw, fcs_smoothed=smoothed, novel=novel, did_add=did_add,
                    do_update=do_update)
+        if gate_score is not None:
+            aux["gate_score"] = gate_score
         if gt_key in batch:
             aux["EPE"] = epe(pred.detach(), batch[gt_key])
         return state, ema, aux

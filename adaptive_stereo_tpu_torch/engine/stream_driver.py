@@ -1,20 +1,20 @@
-"""Driver of the streaming adaptation engine: the `adapt --engine flat`
-entry point (counterpart of adaptive_stereo_tpu/engine/stream_driver.py).
+"""Driver of the streaming adaptation engines: the `adapt --engine flat`
+and `adapt --engine pytree` entry point (counterpart of
+adaptive_stereo_tpu/engine/stream_driver.py).
 
 The same protocol and outputs as the JAX driver: the plateau state machine
 (DONE / IN_PROGRESS), OVS (online validation set) validation, the
 four-channel trust-region guard, experience replay, evaluation,
 trials.csv, checkpoints and resume, on top of the flat engine
-(engine/flat_stream.py). The host and the device synchronize only at
-boundaries:
+(engine/flat_stream.py), optionally with the whole stream cached on the
+device (engine/device_cache.py); engine="pytree" runs the flat engine as
+JAX's structured engine computes (see engine/flat_stream.py). The host
+and the device synchronize only at boundaries:
   - one read-back of the ring log at every log / validation / eval
     boundary (drain);
   - one scalar read-back per OVS validation for the plateau transition.
 
 Differences from the JAX driver:
-- engine='pytree' (engine/stream_adapt.py) and device_cache=True
-  (engine/device_cache.py) are not ported yet and raise
-  NotImplementedError.
 - `device` (a port-only argument, "cuda" unless the caller passes "cpu")
   picks where the model and the engine state live; it changes no result.
 - The stream state file is the port's own layout (per-parameter tensors,
@@ -47,6 +47,7 @@ from ..utils.logging_utils import MetricsWriter, TrialsLog, write_opt_json
 from .adapt import State
 from .checkpoint import load_variables, packb, unpackb
 from .config import ExperimentConfig
+from .device_cache import DeviceCachedLoader, DeviceStreamCache
 from .evaluate import evaluate
 from .flat_stream import (LOG_COLS, FlatStreamState, init_flat_stream_state,
                           make_flat_streaming_steps)
@@ -435,19 +436,31 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
                     resume_from: Optional[str] = None,
                     probe_hook=None,
                     device: DeviceLike = None) -> Dict:
-    """Online adaptation over the stream of cfg.data with the flat engine.
+    """Online adaptation over the stream of cfg.data.
 
     variables: JAX-layout {'params', 'batch_stats'} (engine/checkpoint.py
       load_variables), else loaded from cfg.load_weights_folder.
-    transfer_uint8: upload stream frames as uint8 and normalize on the
-      device (re-quantizes resized colors; the source images are 8-bit).
-    fused_er_forward: the stream and replay frames in one batch-2 forward.
-    done_batch: DONE-state frames queue on the host and run N at a time in
-      one eval forward; the queue flushes at every sync boundary, so the
-      state machine's semantics are unchanged.
-    resume_from: a weights_<step> folder holding stream_state.msgpack and
-      host_state.json (written at every eval boundary): restores the whole
-      streaming state and fast-forwards the stream to the saved step.
+    engine: "flat" or "pytree": the flat engine (engine/flat_stream.py),
+      with "pytree" as JAX's structured engine computes: the replay frame
+      as a second sequential forward, float32 frames. The options below
+      marked "flat" raise ValueError with "pytree", as in JAX; "pytree"
+      ignores transfer_uint8 and fused_er_forward, as JAX's does.
+    transfer_uint8 (flat): upload stream frames as uint8 and normalize on
+      the device (re-quantizes resized colors; the source images are 8-bit).
+    fused_er_forward (flat): the stream and replay frames in one batch-2
+      forward.
+    done_batch (flat): DONE-state frames queue on the host and run N at a
+      time in one eval forward; the queue flushes at every sync boundary,
+      so the state machine's semantics are unchanged.
+    device_cache (flat, batch_size 1): the whole stream, the replay pool
+      and both validation sets go to the device once
+      (engine/device_cache.py) and frames are sliced there; colours as
+      uint8 at input_scale 0 (it sets transfer_uint8 = (input_scale ==
+      0)), which gives the upload path's bits.
+    resume_from (flat): a weights_<step> folder holding stream_state.msgpack
+      and host_state.json (written at every eval boundary): restores the
+      whole streaming state and fast-forwards the stream to the saved step.
+      cfg.adapt.loss_dtype needs the flat engine too.
     probe_hook(step, get_variables): called at log boundaries with a
       function returning the live JAX-layout variables; read-only.
     device: "cuda" (None) or "cpu".
@@ -455,11 +468,18 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
     Returns {'steps', 'gradient_updates', 'guard_rollbacks',
     'steps_per_sec', 'final_metrics', 'final_state', 'stream_state'}.
     """
-    if engine != "flat":
-        raise NotImplementedError(f"engine={engine!r} (engine/stream_adapt.py) is not ported "
-                                  "yet; use engine='flat'")
-    if device_cache:
-        raise NotImplementedError("device_cache (engine/device_cache.py) is not ported yet")
+    if engine not in ("flat", "pytree"):
+        raise ValueError(f"unknown engine {engine!r}: 'flat' or 'pytree'")
+    if engine == "pytree":
+        for name, used in (("done_batch > 1", done_batch > 1),
+                           ("loss_dtype", bool(cfg.adapt.loss_dtype)),
+                           ("resume_from", resume_from is not None),
+                           ("device_cache", device_cache)):
+            if used:
+                raise ValueError(f"{name} requires engine='flat'")
+        transfer_uint8 = fused_er_forward = False
+    if device_cache and cfg.data.batch_size != 1:
+        raise ValueError("device_cache requires batch_size=1")
     dev = resolve_device(device)
     mc, ac, dc, oc = cfg.model, cfg.adapt, cfg.data, cfg.optim
     # The ring must cover the longest possible gap between drains.
@@ -508,7 +528,30 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
     if use_vs and dc.batch_size != 1:
         raise ValueError("VS adaptation modes require batch_size=1")
 
+    stream_cache = er_cache = None
+    if device_cache:
+        cache_u8 = s == 0  # uint8 gives the upload path's bits before any resize
+        transfer_uint8 = cache_u8
+        stream_ds = StereoDataset(dc.dataset_path, dc.dataset_name, dc.split,
+                                  dc.height, dc.width, "train",
+                                  load_disp_left=True, load_disp_right=False,
+                                  color_uint8=cache_u8, **mk)
+        stream_cache = DeviceStreamCache(stream_ds, s, cache_u8, dev, num_workers=dc.num_workers)
+        if use_er:
+            er_ds = StereoDataset(ac.train_dataset_path or dc.dataset_path,
+                                  ac.train_dataset_name or dc.dataset_name,
+                                  ac.train_split or dc.split, dc.height, dc.width, "val",
+                                  load_disp_left=True, load_disp_right=False,
+                                  color_uint8=cache_u8, **mk_train)
+            er_cache = DeviceStreamCache(er_ds, s, cache_u8, dev, num_workers=dc.num_workers)
+        adapt_val_loader = DeviceCachedLoader(adapt_val_loader, dev)
+        train_val_loader = DeviceCachedLoader(train_val_loader, dev)
+
     def to_dev(x) -> torch.Tensor:
+        """Host arrays go up; tensors already on the device (the cache's)
+        pass as they are."""
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, non_blocking=True)
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, non_blocking=True)
 
     step_kwargs = dict(
@@ -536,7 +579,8 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
 
     def color(batch, key):
         # With transfer_uint8 the colors stay host numpy in `batch` and go up
-        # as uint8 here; otherwise they were uploaded as float32.
+        # as uint8 here; otherwise they were uploaded as float32. The
+        # device cache's slices are tensors of the right type already.
         img = batch[key]
         if transfer_uint8 and not isinstance(img, torch.Tensor):
             img = to_dev(np.clip(np.asarray(img) * 255.0, 0, 255).round().astype(np.uint8))
@@ -641,6 +685,8 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
             fo.write(packb(payload))
         with open(os.path.join(folder, "meta.json"), "w") as fo:
             json.dump({"config": cfg.to_json(), "gradient_updates": gradient_updates}, fo)
+        if engine != "flat":
+            return  # JAX writes no streaming state for the pytree engine
         # The whole streaming state beside the weights: every eval boundary
         # is a resume point (see save_stream_checkpoint).
         save_stream_checkpoint(
@@ -755,12 +801,22 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
                 0, epoch, upto_step - 1)
         drained_through = upto_step
 
-    steps_per_epoch = len(adapt_loader)
-    replay = _ReplayPrefetch(train_val_dataset) if use_er else None
+    if device_cache:
+        steps_per_epoch = len(stream_cache)
+
+        def epoch_batches():
+            return (stream_cache.fetch(i) for i in range(steps_per_epoch))
+    else:
+        steps_per_epoch = len(adapt_loader)
+
+        def epoch_batches():
+            return iter(adapt_loader)
+
+    replay = _ReplayPrefetch(train_val_dataset) if use_er and not device_cache else None
     for epoch in range(cfg.num_epochs):
         if ac.num_steps > 0 and step >= ac.num_steps:
             break
-        for batch_idx, raw_batch in enumerate(adapt_loader):
+        for batch_idx, raw_batch in enumerate(epoch_batches()):
             if epoch * steps_per_epoch + batch_idx < resume_step:
                 continue  # fast-forward the stream to the resume point
             if step % ac.ovs_validate_hz == 0 and step > 0:
@@ -779,14 +835,18 @@ def adapt_streaming(cfg: ExperimentConfig, variables: Optional[dict] = None,
                         else:
                             machine.transition(float(avg))
 
-            if transfer_uint8:
+            if device_cache:
+                batch = raw_batch  # slices on the device already
+            elif transfer_uint8:
                 # Colors go up as uint8 inside color(); upload only the rest.
                 batch = {key: (v if key.startswith("color") else to_dev(v))
                          for key, v in raw_batch.items()}
             else:
                 batch = {key: to_dev(v) for key, v in raw_batch.items()}
             if machine.state == State.IN_PROGRESS:
-                if use_er:
+                if use_er and device_cache:
+                    er_batch = er_cache.fetch(step % len(er_cache))
+                elif use_er:
                     it = replay.item(step)
                     er_batch = {key: (v[None] if transfer_uint8 and key.startswith("color")
                                       else to_dev(v[None])) for key, v in it.items()}

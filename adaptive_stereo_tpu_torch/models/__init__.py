@@ -1,5 +1,9 @@
-"""StereoNet as PyTorch nn.Modules (counterpart of adaptive_stereo_tpu/models/)."""
+"""StereoNet, and the AE / VAE reconstruction baselines, as PyTorch
+nn.Modules (counterpart of adaptive_stereo_tpu/models/)."""
 
+from .autoencoder import (VAE, Autoencoder, ConvolutionalDecoder, ConvolutionalEncoder,
+                          autoencoder_state_dict_from_jax, random_autoencoder_init_,
+                          reconstruction_error, vae_loss)
 from .aggregation import aggregation_args, apply_aggregation, apply_coarse_head
 from .stereo_net import (
     BasicBlock,
@@ -15,6 +19,11 @@ from .stereo_net import (
 from .weights import load_reference_folder, state_dicts_from_jax, variables_from_state_dicts
 
 __all__ = [
+    "Autoencoder",
+    "ConvolutionalDecoder",
+    "ConvolutionalEncoder",
+    "VAE",
+    "autoencoder_state_dict_from_jax",
     "BasicBlock",
     "EdgeAwareRefinement",
     "FeatureExtractorNetwork",
@@ -26,8 +35,11 @@ __all__ = [
     "build_model",
     "coarse_num_disparities",
     "load_reference_folder",
+    "random_autoencoder_init_",
     "random_init_",
+    "reconstruction_error",
     "resize_bilinear",
     "state_dicts_from_jax",
+    "vae_loss",
     "variables_from_state_dicts",
 ]

@@ -34,6 +34,7 @@ Quirks of the reference kept on purpose:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -58,8 +59,47 @@ def coarse_num_disparities(maxdisp: int, input_scale: int, k: int) -> int:
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor with half-pixel centres
     (align_corners=False), which equals jax.image.resize(method='linear')
-    when upsampling."""
+    when upsampling. On CUDA tensors its gradient sums in a fixed order
+    (_ResizeBilinear), so that a training step repeats bit for bit."""
+    if x.device.type == "cuda":
+        return _ResizeBilinear.apply(x, tuple(size))
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(out_size: int, in_size: int, device: str) -> torch.Tensor:
+    """(out_size, in_size) float32 weights of the bilinear resize along one
+    axis, as F.interpolate computes them: source index max((o + 0.5) * in /
+    out - 0.5, 0), its floor and the next index (clamped to the edge),
+    weighted 1 - frac and frac."""
+    scale = torch.tensor(in_size, dtype=torch.float32) / out_size
+    src = ((torch.arange(out_size, dtype=torch.float32) + 0.5) * scale - 0.5).clamp(min=0)
+    i0 = src.long()
+    i1 = (i0 + 1).clamp(max=in_size - 1)
+    frac = src - i0
+    rows = torch.arange(out_size)
+    a = torch.zeros(out_size, in_size)
+    a.index_put_((rows, i0), 1 - frac, accumulate=True)
+    a.index_put_((rows, i1), frac, accumulate=True)
+    return a.to(device)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    """F.interpolate's bilinear resize whose backward is the transposed
+    resize as two matrix products. PyTorch's CUDA backward of the resize
+    accumulates with float atomics, in an order that changes from run to
+    run, so two runs of one adapt step would end with different weights."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw = tuple(x.shape[-2:])
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (oh, ow), dev = ctx.in_hw, g.shape[-2:], str(g.device)
+        gx = _resize_matrix(oh, h, dev).t() @ g.float() @ _resize_matrix(ow, w, dev)
+        return gx.to(g.dtype), None
 
 
 def convbn(cin: int, cout: int, kernel_size: int, stride: int = 1, pad: int = 1,

@@ -4,8 +4,12 @@ Counterpart of adaptive_stereo_tpu/serving/stream.py (the reference ROS node,
 ros/stereo_depth_node.py:113-197): per synchronized stereo pair, one
 eval-mode StereoNet forward, then disparity -> depth -> voxelized coloured
 point cloud. The forward and the resizes to the voxel scale run on the
-device (F.interpolate, bilinear, align_corners=False); the geometry is
-numpy.
+device (F.interpolate, bilinear, align_corners=False); depth and the
+backprojection are numpy, and the voxel grid is the native host library's
+hash grid (data/native.py; the engine's constructor builds it with the
+host C++ compiler unless it is built), as in the JAX engine when its
+library is built. voxel_downsample below, in
+numpy, is the grid's plain version; the engine does not fall back to it.
 
 ServingConfig.fused_coarse_head selects the model's coarse head: the fused
 CUDA kernel, or the three kernels in turn (the default). Unlike the JAX
@@ -16,7 +20,7 @@ on_disparity gets the colormapped voxel-scale disparity
 (utils/visualization.py, matplotlib's magma table without matplotlib),
 rate-limited to publish_disp_hz as in the JAX engine.
 
-Not ported yet: the flax msgpack checkpoint and the native voxel grid.
+Not ported yet: the flax msgpack checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data import native
+from ..data.native import voxel_downsample_native
 from ..device import DeviceLike, optional_dtype, resolve_device
 from ..models import StereoModel, load_reference_folder
 from ..utils.visualization import apply_disparity_colormap
@@ -65,7 +71,9 @@ def depth_to_pointcloud(depth: np.ndarray, k_mat: np.ndarray,
 def voxel_downsample(points: np.ndarray, voxel_size: float,
                      colors: Optional[np.ndarray] = None):
     """Average points (and colors) within each voxel (replaces
-    open3d.geometry.voxel_down_sample, reference :184)."""
+    open3d.geometry.voxel_down_sample, reference :184): the numpy plain
+    version of data/native.py voxel_downsample_native, voxels in key
+    order."""
     if len(points) == 0:
         return points, colors
     keys = np.floor(points / voxel_size).astype(np.int64)
@@ -136,6 +144,9 @@ class StereoDepthEngine:
         self.k_voxel[1] /= 2 ** config.voxel_disp_scale
         self.last_inference_sec = None
         self._last_publish_disp_time = 0.0
+        # Build and load the voxel grid's library here, so that a missing
+        # compiler fails the construction and no served frame waits for it.
+        native.library()
 
     def _to_device(self, rgb: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rgb, np.float32)[None]).to(self.device)
@@ -188,7 +199,7 @@ class StereoDepthEngine:
                                    cfg.stereo_baseline_meters, cfg.max_depth)
         color_v = None if p.color_v is None else p.color_v.numpy()
         pts, cols = depth_to_pointcloud(depth, self.k_voxel, color_v)
-        pts, cols = voxel_downsample(pts, cfg.voxel_scale_meters, cols)
+        pts, cols = voxel_downsample_native(pts, cfg.voxel_scale_meters, cols)
         if self.on_pointcloud is not None:
             self.on_pointcloud(pts, cols, p.timestamp)
         return {"disparity": disp, "depth": depth, "points": pts, "colors": cols}

@@ -120,13 +120,38 @@ Phases, in order; any failure raises and the script exits non-zero:
               launched and kernel 4 did not (the command line: train, adapt
               and timing 1-3 and the backward kernels; evaluate 1-3 and no
               backward kernel; none of them 4 or 5)
+ 12. rest     the rest of the single-card surface: (a) the native host
+              library (data/native.py) built, its voxel grid against the
+              numpy plain version on the points of one of phase 4's served
+              frames (the same voxel count and rows within 1e-6 on the
+              points away from voxel faces), both timed on the host, and
+              serving p50 with each grid in turns; (b) the pytree engine
+              (the flat engine with the replay frame as a second forward):
+              PYTREE_STEPS bare adapt steps (launches per step), one step
+              with the kernels against the same step on the plain versions
+              in bf16 and float32 within STEP_LIMITS (a control, a plain
+              step on another frame, outside them), then
+              adapt_streaming(engine="pytree") on phase 10's data; (c) the
+              flat driver with device_cache=True and with the uint8
+              upload path, deterministic cuDNN: every step's inputs, the
+              ring log and the parameters bitwise equal; the cache's
+              bytes; (d) train_autoencoder on the
+              card, the threshold at the median of its scores on the novel
+              stream, then the classic engine gated by the reconstruction
+              error (both branches must fire); (e) compute_fcs_for_loader
+              on both domains and derive_percentile_threshold. Each run
+              fails unless kernels 1, 2, 3 and 5 and both backward kernels
+              launched and kernel 4 did not (the OOD analysis: no backward
+              kernel)
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
 whose "launches" count the served frames of phase 4 (kernels 1-4) or the
 adapt steps of phase 9 (the tower), "train_launches" the adapt steps of
-phase 9 for every kernel and "train11_launches" the launches per bare
-train step at batch 8 of phase 11; "floor_ms" is the launch floor, and the rows
+phase 9 for every kernel, "train11_launches" the launches per bare
+train step at batch 8 of phase 11 and "pytree_launches" (with
+"backward_pytree_launches") those per bare pytree adapt step of phase 12;
+"floor_ms" is the launch floor, and the rows
 of kernels 1 and 3 also carry their backward kernel's time, plain
 version's time, bound and launches over the adapt steps of phase 9.
 Float32 references run with TF32 off (cudnn.allow_tf32 and
@@ -197,6 +222,7 @@ REPLAY_FRAMES = (4, 2)   # training-domain replay and train-val set
 TRAIN_FRAMES = (16, 2)
 TRAIN_BATCH = 8
 BARE_TRAIN_STEPS = 10    # timed bare train steps, after WARMUP_STEPS
+PYTREE_STEPS = 5         # phase 12: counted bare pytree adapt steps, after WARMUP_STEPS
 # Tower, f32 (phase 7): outputs and buffers within 1e-3 + 1e-4 |ref|, mu/var
 # within 1e-4 + 1e-4 |ref| (float32 sums in other orders; 1.3e-4 was
 # measured on an H100 at |ref| = 93). bf16: the kernel chain's error against
@@ -228,6 +254,15 @@ STEP_LIMITS = {
     "float32": {"mono": 1e-5, "replay": 2.7e-5, "feature grad": 0.079,
                 "aggregation grad": 0.016, "tower grad": 0.013, "feature param": 8.9e-3,
                 "aggregation param": 2.0e-3, "tower param": 3.7e-3},
+}
+# Phase 12's pytree step (the replay frame a second forward) is held to
+# STEP_LIMITS with these overrides, each the geometric mean, rounded down,
+# of its sound and control readings (one frame each) on an H100 where that
+# is tighter: there a control on another frame read 0.059 for the bf16
+# tower gradient, within phase 9's 0.085 (PERF.md).
+PYTREE_STEP_LIMITS = {
+    "bfloat16": {"tower grad": 0.025, "tower param": 0.022},
+    "float32": {"aggregation param": 1.7e-3, "tower grad": 3.4e-3, "tower param": 2.3e-3},
 }
 
 # Whole forward, kernels vs plain, bf16. If every aggregated cost entry
@@ -1163,26 +1198,54 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def fork(model, ss, float32=False):
-    """An independent copy of (model, engine state); with float32, the copy
-    computes in float32 (the same weights and state)."""
-    from adaptive_stereo_tpu_torch.engine import DeviceReservoir, FlatStreamState, live_parameters
-
+def copy_model(model, float32=False):
+    """An independent copy of model; with float32, it computes in float32."""
     m2 = copy.deepcopy(model)
     if float32:
         for mod in m2.modules():
             if isinstance(getattr(mod, "dtype", None), torch.dtype):
                 mod.dtype = None
-    r = ss.reservoir
+    return m2
+
+
+def copy_reservoir(r):
+    from adaptive_stereo_tpu_torch.engine import DeviceReservoir
+
     gen = torch.Generator(device=r.values.device)
     gen.set_state(r.generator.get_state())
-    res = DeviceReservoir(r.left.clone(), r.right.clone(), r.values.clone(),
-                          r.reg_indices.clone(), r.size.clone(), r.count.clone(), gen)
+    return DeviceReservoir(r.left.clone(), r.right.clone(), r.values.clone(),
+                           r.reg_indices.clone(), r.size.clone(), r.count.clone(), gen)
+
+
+def fork(model, ss, float32=False):
+    """An independent copy of (model, engine state); with float32, the copy
+    computes in float32 (the same weights and state)."""
+    from adaptive_stereo_tpu_torch.engine import FlatStreamState, live_parameters
+
+    m2 = copy_model(model, float32)
     return m2, FlatStreamState(
         params=live_parameters(m2), n_feature=ss.n_feature, m=[t.clone() for t in ss.m],
         v=[t.clone() for t in ss.v], count=ss.count.clone(), lr=ss.lr.clone(),
-        ema_value=ss.ema_value.clone(), ema_init=ss.ema_init.clone(), reservoir=res,
-        log=ss.log.clone(), log_pos=ss.log_pos.clone())
+        ema_value=ss.ema_value.clone(), ema_init=ss.ema_init.clone(),
+        reservoir=copy_reservoir(ss.reservoir), log=ss.log.clone(),
+        log_pos=ss.log_pos.clone())
+
+
+def param_modules(model, params):
+    """{module: indices into params} for the per-module comparisons of an
+    adapt step: the feature net, the aggregation and the tower."""
+    owner = {id(p): name for name, p in model.named_parameters()}
+    modules = {}
+    for i, p in enumerate(params):
+        name = owner[id(p)]
+        module = ("feature" if name.startswith("feature_net.") else
+                  "tower" if name.startswith("stereo_net.edge_aware_refinements.") else
+                  "aggregation" if name.startswith(("stereo_net.filter.",
+                                                    "stereo_net.conv3d_alone.")) else None)
+        if module is None:
+            raise AssertionError(f"parameter {name} belongs to no module of the comparison")
+        modules.setdefault(module, []).append(i)
+    return modules
 
 
 def training_phase(seed, dev, rows):
@@ -1300,17 +1363,7 @@ def training_phase(seed, dev, rows):
     # reading must lie within its limit, every control reading outside it.
     frame_b = (to_dev(rng.rand(1, h, w, 3)), to_dev(rng.rand(1, h, w, 3)),
                to_dev(rng.rand(1, h, w, 1) * 60), left, right, gt, 0)
-    owner = {id(p): name for name, p in model.named_parameters()}
-    modules = {}
-    for i, p in enumerate(ss.params):
-        name = owner[id(p)]
-        module = ("feature" if name.startswith("feature_net.") else
-                  "tower" if name.startswith("stereo_net.edge_aware_refinements.") else
-                  "aggregation" if name.startswith(("stereo_net.filter.",
-                                                    "stereo_net.conv3d_alone.")) else None)
-        if module is None:
-            raise AssertionError(f"parameter {name} belongs to no module of the comparison")
-        modules.setdefault(module, []).append(i)
+    modules = param_modules(model, ss.params)
     stereo = modules["aggregation"] + modules["tower"]
 
     def loss_grads(m, frame):
@@ -2248,6 +2301,410 @@ def classic_phase(seed, dev, rows, card, bare_ms, driver_ms, root):
     log(f"[classic] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def rest_phase(seed, dev, rows, card, serving, bare_ms, driver_ms, root):
+    """Phase 12: the native voxel grid on the serving path, the pytree
+    engine, the device cache, the reconstruction gate and the OOD analysis.
+    serving: (phase 4's default engine, its frames, its p50 ms)."""
+    import importlib
+    import os
+
+    import adaptive_stereo_tpu_torch.engine.flat_stream as fs
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+    import adaptive_stereo_tpu_torch.serving.stream as serving_stream
+    from adaptive_stereo_tpu_torch.analysis import (compute_fcs_for_loader,
+                                                    compute_precision_recall,
+                                                    derive_percentile_threshold,
+                                                    reconstruction_scores, train_autoencoder)
+    from adaptive_stereo_tpu_torch.data import BatchLoader, StereoDataset, native
+    from adaptive_stereo_tpu_torch.engine.flat_stream import dequantize_u8
+    from adaptive_stereo_tpu_torch.engine import (LOG_COLS, AdaptConfig, DataConfig,
+                                                  DeviceStreamCache, ExperimentConfig,
+                                                  ModelConfig, OptimConfig,
+                                                  init_flat_stream_state, load_variables,
+                                                  make_flat_streaming_steps)
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_, state_dicts_from_jax
+    from adaptive_stereo_tpu_torch.serving import voxel_downsample
+
+    t_phase = time.perf_counter()
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+    cols = {c: i for i, c in enumerate(LOG_COLS)}
+    h, w = DRIVER_SHAPE
+    novel, train, train16 = (os.path.join(root, name) for name in ("novel", "train", "train16"))
+    weights = os.path.join(root, "weights")
+
+    def reset():
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def counts():
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        return got
+
+    def check_launches(label, absent):
+        got = counts()
+        log(f"[rest] {label}: kernel launches " + ", ".join(f"{n}={c}" for n, c in got.items()))
+        require_launches(label, got, absent)
+
+    # (a) The native voxel grid against its numpy plain version, on the
+    # points of one served 320x1216 frame (phase 4's default engine).
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    native.library()
+    engine, frames, p50_phase4 = serving
+    cfg_s = engine.config
+    pending = engine._dispatch(*frames[0], 0.0)
+    torch.cuda.synchronize()
+    depth = serving_stream.disparity_to_depth(pending.disp_v.numpy(), engine.k_voxel[0, 0],
+                                              cfg_s.stereo_baseline_meters, cfg_s.max_depth)
+    pts, colors = serving_stream.depth_to_pointcloud(depth, engine.k_voxel,
+                                                     pending.color_v.numpy())
+    voxel = cfg_s.voxel_scale_meters
+    grids = {"native": native.voxel_downsample_native, "numpy": voxel_downsample}
+    grid_ms = {name: [] for name in grids}
+    for _ in range(5):
+        for name, fn in grids.items():
+            t = time.perf_counter()
+            fn(pts, voxel, colors)
+            grid_ms[name].append((time.perf_counter() - t) * 1e3)
+    full = {name: len(fn(pts, voxel, colors)[0]) for name, fn in grids.items()}
+    frac = pts.astype(np.float64) / voxel
+    frac -= np.floor(frac)
+    keep = ((frac > 0.01) & (frac < 0.99)).all(axis=1)
+
+    def sorted_rows(p, c):
+        rows_ = np.concatenate([p, c], axis=1)
+        return rows_[np.lexsort(rows_.T[::-1])]
+
+    got = sorted_rows(*native.voxel_downsample_native(pts[keep], voxel, colors[keep]))
+    want = sorted_rows(*voxel_downsample(pts[keep], voxel, colors[keep]))
+    grid_err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    log(f"[rest] native voxel grid ({lib_path.name}, built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s with the time of one served frame): {len(pts)} points "
+        f"of a served {cfg_s.model_input_height}x{cfg_s.model_input_width} frame (voxel scale "
+        f"{cfg_s.voxel_disp_scale}, {voxel} m): native {full['native']} voxels, numpy "
+        f"{full['numpy']}; median of 5 on the host: native "
+        f"{statistics.median(grid_ms['native']):.3f} ms, numpy "
+        f"{statistics.median(grid_ms['numpy']):.3f} ms; away from faces ({int(keep.sum())} "
+        f"points): {len(got)} vs {len(want)} voxels, rows within {grid_err:.3g}")
+    if got.shape != want.shape or grid_err > 1e-6:
+        raise AssertionError(f"native voxel grid vs numpy: {got.shape} vs {want.shape}, "
+                             f"max err {grid_err}")
+    # Serving p50 with the native grid (as phase 4 served) and with the
+    # numpy grid in its place, in turns.
+    p50 = {"native": [], "numpy": []}
+    for name in ("native", "numpy", "numpy", "native"):
+        grid = native.voxel_downsample_native if name == "native" else voxel_downsample
+        saved = serving_stream.voxel_downsample_native
+        serving_stream.voxel_downsample_native = grid
+        try:
+            _, lat, _, _ = serve(engine, frames, wrappers.values())
+        finally:
+            serving_stream.voxel_downsample_native = saved
+        p50[name].append(statistics.median(lat))
+    log(f"[rest] serving p50 over {FRAMES} frames, default head: native grid "
+        f"{p50['native'][0]:.2f} / {p50['native'][1]:.2f} ms, numpy grid {p50['numpy'][0]:.2f} / "
+        f"{p50['numpy'][1]:.2f} ms (in turns); phase 4 (native grid) {p50_phase4:.2f} ms; {card}")
+
+    def config(name, steps, model_kw=None, **adapt):
+        base = dict(adapt_mode="VS+ER", ood_threshold=1e9, train_dataset_path=train,
+                    train_dataset_name="Synthetic", train_split="synth", num_steps=steps,
+                    ovs_buffer_size=2, ovs_validate_hz=4, eval_hz=steps, skip_initial_eval=True)
+        base.update(adapt)
+        model = dict(k=4, input_scale=0, compute_dtype="bfloat16", fused_siamese=True,
+                     s2d_refinement=True)
+        model.update(model_kw or {})
+        return ExperimentConfig(
+            model_name=name, log_dir=os.path.join(root, "logs12"), num_epochs=1,
+            log_frequency=4, load_weights_folder=weights, model=ModelConfig(**model),
+            optim=OptimConfig(learning_rate=LR, clip_grad_norm=True),
+            data=DataConfig(dataset_path=novel, dataset_name="Synthetic", split="synth",
+                            height=h, width=w, batch_size=1, num_workers=4),
+            adapt=AdaptConfig(**base))
+
+    def check_log(label, ss, n_rows):
+        log_rows = ss.log[:int(ss.log_pos)].cpu().numpy()
+        if len(log_rows) != n_rows or not np.isfinite(log_rows).all():
+            raise AssertionError(f"{label}: ring log of {len(log_rows)} rows (want {n_rows}) "
+                                 f"or not finite")
+        return log_rows
+
+    # (b) engine="pytree": the flat engine with the replay frame as a
+    # second, sequential train-mode forward (fused_er_forward=False, float32
+    # frames; engine/flat_stream.py). The bare step (launches per step, one
+    # step with the kernels against the plain versions), then the driver.
+    model = random_init_(StereoModel(k=4, dtype=torch.bfloat16, device=dev, fused_siamese=True,
+                                     fused_tower=True), torch.Generator().manual_seed(seed + 9))
+    ss = init_flat_stream_state(model, LR, 16, h, w, 64, seed=seed, device=dev)
+    options = dict(use_er=True, use_vs=True, ood_threshold=12.76, clip_grad_norm=True,
+                   fused_er_forward=False)
+    adapt = make_flat_streaming_steps(model, 0, 4, **options)[0]
+    rng = np.random.RandomState(seed + 12)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    def frame():
+        """A stream frame and a replay frame: (left, right, gt) each."""
+        return tuple(to_dev(rng.rand(1, h, w, c) * scale)
+                     for _ in range(2) for c, scale in ((3, 1), (3, 1), (1, 60)))
+
+    frame_a, frame_b = frame(), frame()
+    times = []
+    for i in range(WARMUP_STEPS + PYTREE_STEPS):
+        if i == WARMUP_STEPS:
+            reset()
+        t0 = time.perf_counter()
+        ss = adapt(ss, *frame_a, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_step = {name: c / PYTREE_STEPS for name, c in counts().items()}
+    for row in rows:
+        row["pytree_launches"] = per_step[row["name"]]
+        if f"{row['name']} backward" in per_step:
+            row["backward_pytree_launches"] = per_step[f"{row['name']} backward"]
+    pytree_ms = statistics.median(times[WARMUP_STEPS:])
+    log(f"[rest] bare pytree adapt step at {h}x{w} k=4 bf16 (fused siamese, tower, VS+ER, the "
+        f"replay frame as a second forward): median {pytree_ms:.2f} ms of {PYTREE_STEPS} after "
+        f"{WARMUP_STEPS} warm-up, against phase 9's flat step {bare_ms:.2f} ms; launches per "
+        "step " + ", ".join(f"{n}={c:g}" for n, c in per_step.items()) + f"; {card}")
+    require_launches("bare pytree step", per_step, absent=("coarse_head",))
+    if int(ss.log_pos) != WARMUP_STEPS + PYTREE_STEPS:
+        raise AssertionError(f"pytree step: {int(ss.log_pos)} log rows")
+
+    # One step with the kernels against the same step on the plain versions
+    # (the sound reading) and a plain step on frame B against one on frame A
+    # (the control), in bf16 and float32, with phase 9's readings and rule
+    # (STEP_LIMITS tightened by PYTREE_STEP_LIMITS): every sound reading
+    # within its limit, every control reading outside.
+    modules = param_modules(model, ss.params)
+    recorded = {}
+    adam = fs.adam_masked
+
+    def recording_adam(state, grads, do_update=None):
+        recorded["grads"] = [g.detach().float().clone() for g in grads]
+        return adam(state, grads, do_update)
+
+    def one_step(plain, frame_, float32):
+        m2, ss2 = fork(model, ss, float32)
+        before = counts()
+        fs.adam_masked = recording_adam
+        try:
+            with plain_versions() if plain else contextlib.nullcontext():
+                ss2 = make_flat_streaming_steps(m2, 0, 4, **options)[0](ss2, *frame_, 0)
+        finally:
+            fs.adam_masked = adam
+        if plain and counts() != before:
+            raise AssertionError("the plain-version pytree step launched a kernel")
+        row = ss2.log[(int(ss2.log_pos) - 1) % ss2.log.shape[0]].cpu().numpy()
+        return recorded.pop("grads"), [p.detach().float() for p in ss2.params], row
+
+    start = [p.detach().float().clone() for p in ss.params]
+
+    def readings(got, ref):
+        (g_a, p_a, row_a), (g_r, p_r, row_r) = got, ref
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+        cat = lambda ts, idx: torch.cat([ts[i].flatten() for i in idx])
+        out = {"mono": rel(row_a[cols["mono_loss"]], row_r[cols["mono_loss"]]),
+               "replay": rel(row_a[cols["replay_loss"]], row_r[cols["replay_loss"]]),
+               "do_update": float(row_a[cols["do_update"]] != row_r[cols["do_update"]])}
+        for module, idx in modules.items():
+            out[f"{module} grad"] = rel_l2(cat(g_a, idx), cat(g_r, idx))
+            upd = (cat(p_r, idx) - cat(start, idx)).abs().median()
+            out[f"{module} param"] = ((cat(p_a, idx) - cat(p_r, idx)).abs().median()
+                                      / upd).item()
+        return out
+
+    failed = []
+    for label, limits in STEP_LIMITS.items():
+        limits = {**limits, **PYTREE_STEP_LIMITS[label]}
+        f32 = label == "float32"
+        plain_a = one_step(True, frame_a, f32)
+        sound = readings(one_step(False, frame_a, f32), plain_a)
+        control = readings(one_step(True, frame_b, f32), plain_a)
+        for key, value in sound.items():
+            limit = limits.get(key)
+            log(f"[rest] one pytree step {label}, kernels vs plain versions, {key}: {value:.4g}; "
+                f"limit {'-' if limit is None else f'{limit:g}'}; control (plain, frame B vs A) "
+                f"{control[key]:.4g}")
+            if (key == "do_update" and value) or (limit is not None and value > limit):
+                failed.append(f"{label} {key}: sound reading {value:.4g}")
+            if limit is not None and control[key] <= limit:
+                failed.append(f"{label} {key}: the control {control[key]:.4g} is within "
+                              f"{limit:g}")
+    if failed:
+        raise AssertionError("pytree step, kernels vs plain versions: " + "; ".join(failed))
+    del model, ss
+
+    calls = {"adapt": [], "validate": 0}
+    make_flat = sd.make_flat_streaming_steps
+
+    def counted_steps(*a, **kw):
+        if kw.get("fused_er_forward") or kw.get("images_uint8"):
+            raise AssertionError(f"engine='pytree' built the flat engine with {kw}")
+        adapt_fn, done_fn, validate_fn, make_batched = make_flat(*a, **kw)
+
+        def adapt_c(*args):
+            calls["adapt"].append(time.perf_counter())
+            return adapt_fn(*args)
+
+        def validate_c(state):
+            calls["validate"] += 1
+            return validate_fn(state)
+        return adapt_c, done_fn, validate_c, make_batched
+
+    sd.make_flat_streaming_steps = counted_steps
+    reset()
+    try:
+        t0 = time.perf_counter()
+        result = sd.adapt_streaming(config("pytree12", DRIVER_FRAMES[0]), engine="pytree",
+                                    device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        sd.make_flat_streaming_steps = make_flat
+    check_launches("adapt_streaming(engine='pytree')", absent=("coarse_head",))
+    log_rows = check_log("pytree driver", result["stream_state"], DRIVER_FRAMES[0])
+    starts = calls["adapt"]
+    pytree_driver_ms = statistics.median([(b - a) * 1e3 for a, b in zip(starts, starts[1:])])
+    log(f"[rest] adapt_streaming(engine='pytree'), VS+ER: {result['steps']} steps in {wall:.1f} s "
+        f"({result['steps_per_sec']:.2f} steps/s), {result['gradient_updates']} updates, "
+        f"{calls['validate']} validations, {len(log_rows)} log rows; did_add "
+        f"{int(log_rows[:, cols['did_add']].sum())}; median interval between adapt steps "
+        f"{pytree_driver_ms:.2f} ms against phase 10's flat driver {driver_ms:.2f} ms; {card}")
+    if not (len(starts) > 1 and calls["validate"] and result["gradient_updates"]):
+        raise AssertionError("pytree driver: no adapt step, validation or update")
+
+    # (c) The device cache against the upload path at input_scale 0. The
+    # cache holds uint8 frames and forces transfer_uint8, so the upload path
+    # it replaces uploads uint8 frames: with deterministic cuDNN, every
+    # input of every step, the ring log and the parameters must be bitwise
+    # equal.
+    runs = {}
+    make_flat = sd.make_flat_streaming_steps
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for label, kw in (("cached", dict(device_cache=True)),
+                          ("upload", dict(transfer_uint8=True))):
+            inputs, starts = [], []
+
+            def recorded_flat(*a, **k):
+                steps = list(make_flat(*a, **k))
+
+                def wrap(fn, timed):
+                    def call(*args):
+                        if timed:
+                            starts.append(time.perf_counter())
+                        inputs.append([x.clone() for x in args[1:-1]])
+                        return fn(*args)
+                    return call
+                steps[0], steps[1] = wrap(steps[0], True), wrap(steps[1], False)
+                return tuple(steps)
+
+            sd.make_flat_streaming_steps = recorded_flat
+            reset()
+            try:
+                result = sd.adapt_streaming(config(f"cache12_{label.replace(' ', '_')}",
+                                                   DRIVER_FRAMES[0]),
+                                            fused_er_forward=True, device=dev, **kw)
+            finally:
+                sd.make_flat_streaming_steps = make_flat
+            check_launches(f"flat driver, {label}", absent=("coarse_head",))
+            check_log(f"flat driver, {label}", result["stream_state"], DRIVER_FRAMES[0])
+            runs[label] = (result["stream_state"], inputs,
+                           statistics.median([(b - a) * 1e3 for a, b in zip(starts, starts[1:])]))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+
+    (ss_c, inputs_c, _), (ss_u, inputs_u, _) = runs["cached"], runs["upload"]
+    same_inputs = len(inputs_c) == len(inputs_u) and all(
+        torch.equal(x, y) for xs, ys in zip(inputs_c, inputs_u) for x, y in zip(xs, ys))
+    same_log = torch.equal(ss_c.log, ss_u.log)
+    same_params = all(torch.equal(x, y) for x, y in zip(ss_c.params, ss_u.params))
+    drift = max((x.float() - y.float()).abs().max().item()
+                for x, y in zip(ss_c.params, ss_u.params))
+    log(f"[rest] flat driver, device cache against the uint8 upload path ({DRIVER_FRAMES[0]} "
+        f"steps, VS+ER, fused ER forward, deterministic cuDNN): bitwise equal step inputs "
+        f"{same_inputs}, ring log {same_log}, parameters {same_params} (max difference "
+        f"{drift:.3g}); median interval between adapt steps: "
+        + ", ".join(f"{label} {run[2]:.2f} ms" for label, run in runs.items())
+        + f", phase 10's driver {driver_ms:.2f} ms; {card}")
+    if not (same_inputs and same_log and same_params):
+        raise AssertionError("device cache vs the upload path: the cached run differs")
+    # The uint8 frames' dequantization on the card against the dataset's
+    # float32 division on the host, level by level.
+    levels = torch.arange(256, dtype=torch.uint8)
+    host = torch.from_numpy(levels.numpy().astype(np.float32) / 255.0)
+    same = {"dequantize_u8": int((dequantize_u8(levels.to(dev)).cpu() == host).sum()),
+            "/ 255.0 (a Python scalar)": int(((levels.to(dev).float() / 255.0).cpu()
+                                              == host).sum())}
+    log("[rest] uint8 -> float32 / 255 on the card, levels equal to the host's float32 "
+        "division: " + ", ".join(f"{name} {n} of 256" for name, n in same.items()))
+    if same["dequantize_u8"] != 256:
+        raise AssertionError(f"dequantize_u8 on the card: {same}")
+    stream_ds = StereoDataset(novel, "Synthetic", "synth", h, w, "train", scales=[0, 4],
+                              load_disp_right=False, color_uint8=True)
+    cache_bytes = DeviceStreamCache(stream_ds, 0, True, dev, num_workers=4).nbytes
+    log(f"[rest] device cache: the {len(stream_ds)}-frame stream holds {cache_bytes / 1e6:.2f} MB "
+        f"on the card (uint8 colour, float32 ground truth)")
+
+    # (d) The reconstruction gate: an AE trained a few steps on the card,
+    # the threshold at the median of its scores on the novel stream, then
+    # the classic engine gated by it.
+    def loader(root_, subsplit, batch):
+        ds = StereoDataset(root_, "Synthetic", "synth", h, w, subsplit, scales=[0, 4],
+                           load_disp_right=False)
+        return BatchLoader(ds, batch, shuffle=False, num_workers=4)
+
+    t0 = time.perf_counter()
+    ae, ae_weights, ae_losses = train_autoencoder(loader(train16, "train", 2), num_steps=6,
+                                                  learning_rate=1e-3, seed=seed, device=dev)
+    scores = reconstruction_scores(ae, None, loader(novel, "train", 4))
+    threshold = float(np.median(scores))
+    log(f"[rest] train_autoencoder (AE, latent 32, 4 stages) at {h}x{w}, 6 steps of batch 2 on "
+        f"the card: losses {', '.join(f'{x:.5f}' for x in ae_losses)}, "
+        f"{time.perf_counter() - t0:.1f} s; novel-domain scores "
+        f"{', '.join(f'{x:.5f}' for x in scores)}, threshold (median) {threshold:.5f}")
+    if not np.isfinite(ae_losses).all() or not np.isfinite(scores).all():
+        raise AssertionError("autoencoder: non-finite losses or scores")
+    adapt_mod = importlib.import_module("adaptive_stereo_tpu_torch.engine.adapt")
+    records = []
+    reset()
+    gated = config("gate12", 8, gate="reconstruction", ood_threshold=threshold,
+                   train_dataset_path=train16)
+    summary = adapt_mod.adapt(gated, gate_model=ae, gate_variables=ae_weights, gate_kind="ae",
+                              step_hook=lambda i, r: records.append(r), device=dev)
+    check_launches("adapt (classic, reconstruction gate)", absent=("coarse_head",))
+    novel_flags = [r["novel"] for r in records]
+    log(f"[rest] classic adapt with the reconstruction gate: {summary['steps']} steps, "
+        f"{summary['gradient_updates']} updates, novel {novel_flags}, states "
+        f"{[r['state'] for r in records]}")
+    if not (any(novel_flags) and not all(novel_flags) and summary["gradient_updates"]
+            and all(np.isfinite(r["mono_loss"]) for r in records)):
+        raise AssertionError("reconstruction gate: both branches must fire")
+
+    # (e) The FCS OOD analysis on both domains (eval forwards).
+    model = StereoModel(k=4, dtype=torch.bfloat16, device=dev, fused_siamese=True,
+                        fused_tower=True)
+    model.load_state_dicts(*state_dicts_from_jax(load_variables(weights), 4))
+    reset()
+    fcs = {name: compute_fcs_for_loader(model, None, loader(path, "train", 4), 0, 4)
+           for name, path in (("training", train16), ("novel", novel))}
+    check_launches("compute_fcs_for_loader", absent=("coarse_head", "tower_backward",
+                                                      "difference_cost_volume backward",
+                                                      "soft_argmin_fcs backward"))
+    ood = derive_percentile_threshold(fcs["training"], 0.05)
+    pr = compute_precision_recall(fcs["training"], fcs["novel"], ood)
+    log("[rest] FCS per image: " + "; ".join(
+        f"{name} domain " + ", ".join(f"{v:.4f}" for v in values) for name, values in fcs.items())
+        + f"; 5th-percentile threshold {ood:.4f}; precision / recall at it {pr[0]:.3f} / "
+        f"{pr[1]:.3f}")
+    if not (np.isfinite(ood) and all(np.isfinite(v).all() for v in fcs.values())):
+        raise AssertionError("OOD analysis: non-finite FCS or threshold")
+    log(f"[rest] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2436,6 +2893,7 @@ def main() -> int:
               for _ in range(FRAMES)]
     engines = {}
     served = {}
+    p50 = {}
     for fused in (False, True):
         config = ServingConfig(fused_coarse_head=fused)
         engine = engines[fused] = StereoDepthEngine(config, weights, device="cuda")
@@ -2454,6 +2912,7 @@ def main() -> int:
         for row, n in zip(rows, launches):
             if (row["name"] == "coarse_head") == fused:
                 row["launches"] = n
+        p50[fused] = statistics.median(lat)
         log(f"[serving] fused_coarse_head={fused}: {FRAMES} frames {hh}x{ww} k={k} "
             f"{config.compute_dtype}: p50 {statistics.median(lat):.2f} ms/frame (first "
             f"{lat[0]:.1f} ms, min {min(lat):.2f}); of which upload + forward + download p50 "
@@ -2499,11 +2958,16 @@ def main() -> int:
     driver_ms = driver_phase(args.seed, dev, rows, card, bare_ms, driver_root.name, driver_data)
     # Phase 11: train, the classic engine, evaluate and timing.
     classic_phase(args.seed, dev, rows, card, bare_ms, driver_ms, driver_root.name)
+    # Phase 12: the native voxel grid, the pytree engine, the device cache,
+    # the reconstruction gate and the OOD analysis.
+    rest_phase(args.seed, dev, rows, card, (engines[False], frames, p50[False]), bare_ms,
+               driver_ms, driver_root.name)
     driver_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches",
-            "train11_launches", "max_abs_err",
+            "train11_launches", "pytree_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
-            "backward_plain_ms", "backward_bound_ms", "backward_train_launches")
+            "backward_plain_ms", "backward_bound_ms", "backward_train_launches",
+            "backward_pytree_launches")
     for row in rows:
         row["floor_ms"] = floor.ms
     table = [{key: row[key] for key in keys if key in row} for row in rows]

@@ -85,7 +85,7 @@ def data(tmp_path_factory):
     return train, novel, variables
 
 
-def _cfg(mod, data, log_dir, name, mode, **adapt):
+def _cfg(mod, data, log_dir, name, mode, lr=LR, **adapt):
     train, novel, _ = data
     options = dict(adapt_mode=mode, ovs_buffer_size=2, ovs_validate_hz=3,
                    val_improve_retries=1, eval_hz=6, ood_threshold=1e9,
@@ -95,7 +95,7 @@ def _cfg(mod, data, log_dir, name, mode, **adapt):
     return mod.ExperimentConfig(
         model_name=name, log_dir=str(log_dir), num_epochs=2, log_frequency=3,
         model=mod.ModelConfig(k=K, input_scale=S, maxdisp=MAXDISP),
-        optim=mod.OptimConfig(learning_rate=LR, clip_grad_norm=True),
+        optim=mod.OptimConfig(learning_rate=lr, clip_grad_norm=True),
         data=mod.DataConfig(dataset_path=novel, dataset_name="Synthetic", split="synth",
                             height=H, width=W, batch_size=1, num_workers=0),
         adapt=mod.AdaptConfig(**options))
@@ -118,19 +118,26 @@ def _read_csv(path):
     return rows[0], rows[1:]
 
 
-def check_adapt_against_jax(mode, extra, data, tmp_path, monkeypatch):
-    """Run both engines on one configuration and hold the port to JAX."""
+def check_adapt_against_jax(mode, extra, data, tmp_path, monkeypatch, jax_kw=None,
+                            port_kw=None, margins=(), lr=LR):
+    """Run both engines on one configuration and hold the port to JAX.
+    jax_kw / port_kw: more arguments of each adapt() (the reconstruction
+    gate's model); margins: more (what, relative margin) decisions to hold
+    above the band; lr: the learning rate, which the parameter and running
+    statistics bands scale with. Returns the per-step records of both
+    runs."""
     variables = data[2]
     records = {"jax": [], "port": []}
     events = {"jax": [], "port": []}
     _record_transitions(monkeypatch, jax_adapt_mod, events["jax"])
     _record_transitions(monkeypatch, port_adapt_mod, events["port"])
-    ref = jax_adapt_mod.adapt(_cfg(jax_config, data, tmp_path, "jax", mode, **extra),
+    ref = jax_adapt_mod.adapt(_cfg(jax_config, data, tmp_path, "jax", mode, lr, **extra),
                               variables=variables,
-                              step_hook=lambda s, r: records["jax"].append(r))
-    got = port_adapt_mod.adapt(_cfg(port_config, data, tmp_path, "port", mode, **extra),
+                              step_hook=lambda s, r: records["jax"].append(r), **(jax_kw or {}))
+    got = port_adapt_mod.adapt(_cfg(port_config, data, tmp_path, "port", mode, lr, **extra),
                                variables=variables, device="cpu",
-                               step_hook=lambda s, r: records["port"].append(r))
+                               step_hook=lambda s, r: records["port"].append(r),
+                               **(port_kw or {}))
     for key in ("steps", "gradient_updates", "final_state"):
         print(f"{key}: JAX {ref[key]}, port {got[key]}")
         assert got[key] == ref[key], key
@@ -162,7 +169,7 @@ def check_adapt_against_jax(mode, extra, data, tmp_path, monkeypatch):
         assert got["gradient_updates"] > 0
 
     # Every decision's margin to its threshold.
-    margins = []
+    margins = list(margins)
     if mode in ("VS", "VS+ER"):
         margins += [("novelty: smoothed FCS vs ood_threshold", abs(1e9 - r["fcs_smoothed"]) / 1e9)
                     for r in records["port"]]
@@ -198,16 +205,17 @@ def check_adapt_against_jax(mode, extra, data, tmp_path, monkeypatch):
         ("running_mean", "running_var", "num_batches_tracked"))]
     diffs = np.concatenate([np.abs(mine[k] - want[k]).ravel() for k in live])
     print(f"final weights: max {diffs.max():.3g}, median {np.median(diffs):.3g} "
-          f"({n_updates} updates of lr {LR})")
-    assert diffs.max() <= 2 * LR * max(n_updates, 1) and np.median(diffs) <= MEDIAN_PARAM_LR * LR
+          f"({n_updates} updates of lr {lr})")
+    assert diffs.max() <= 2 * lr * max(n_updates, 1) and np.median(diffs) <= MEDIAN_PARAM_LR * lr
     for k in want:
         if k.endswith(("running_mean", "running_var")) and ".conv2." not in k:
             np.testing.assert_allclose(mine[k], want[k], rtol=AFTER_UPDATE_TOL["rtol"],
-                                       atol=AFTER_UPDATE_TOL["atol"] + 2 * LR * n_updates,
+                                       atol=AFTER_UPDATE_TOL["atol"] + 2 * lr * n_updates,
                                        err_msg=k)
     state, j_state = got["state"], ref["state"]
     assert int(state.step) == int(j_state.step)
     assert int(state.count) == int(j_state.opt_state.count) == n_updates
+    return records
 
 
 @pytest.mark.parametrize("mode", ["NONSTOP", "ER", "VS", "VS+ER"])

@@ -19,9 +19,10 @@
 - a resumed run equal to an uninterrupted one, bit for bit, with the
   reservoir's random draws deciding (capacity 2);
 - the command line: a run from a checkpoint the port wrote, and the named
-  errors (a bogus --adapt_mode, no weights, a missing folder, the engine
-  and option not ported yet, the classic engine's flag checks, and the
-  classic engine's reconstruction gate, which needs the autoencoder).
+  errors (a bogus --adapt_mode, no weights, a missing folder, `--engine
+  pytree` without weights (it reaches the driver), `--device_cache` with
+  the pytree engine, the classic engine's flag checks, and the classic
+  engine's reconstruction gate without its autoencoder).
 """
 
 import csv
@@ -406,17 +407,17 @@ def test_cli_named_errors(data, tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         main(args("--engine", "flat", "--device", "cpu", "--load_weights_folder",
                   str(tmp_path / "missing")))
-    with pytest.raises(SystemExit, match="--engine pytree .* not ported yet"):
-        main(args("--engine", "pytree"))
+    with pytest.raises(ValueError, match="needs pretrained weights"):
+        main(args("--engine", "pytree", "--device", "cpu"))
     with pytest.raises(SystemExit, match="--ovs_guard_lr_factor require"):
         main(args("--ovs_guard_lr_factor", "1.3"))
     with pytest.raises(SystemExit, match="--resume_from requires --engine flat"):
         main(args("--resume_from", str(tmp_path)))
     with pytest.raises(SystemExit, match="--loss_dtype requires --engine flat"):
         main(args("--loss_dtype", "bfloat16"))
-    with pytest.raises(NotImplementedError, match="device_cache .* not ported yet"):
-        main(args("--engine", "flat", "--device", "cpu", "--device_cache"))
+    with pytest.raises(ValueError, match="device_cache requires engine='flat'"):
+        main(args("--engine", "pytree", "--device", "cpu", "--device_cache"))
     gated = port_config.ExperimentConfig(log_dir=str(tmp_path),
                                          adapt=port_config.AdaptConfig(gate="reconstruction"))
-    with pytest.raises(NotImplementedError, match="gate='reconstruction' .*autoencoder"):
+    with pytest.raises(ValueError, match="gate='reconstruction' requires gate_model"):
         adapt_classic(gated, variables=data[2], device="cpu")

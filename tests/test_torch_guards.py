@@ -8,12 +8,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import adaptive_stereo_tpu_torch
 from adaptive_stereo_tpu_torch import resolve_device
-from adaptive_stereo_tpu_torch.engine import init_device_reservoir, init_flat_stream_state
+from adaptive_stereo_tpu_torch.analysis import train_autoencoder
+from adaptive_stereo_tpu_torch.engine import (DeviceCachedLoader, init_device_reservoir,
+                                              init_flat_stream_state)
 from adaptive_stereo_tpu_torch.models import StereoModel
 from adaptive_stereo_tpu_torch.ops.cuda import _build
 from adaptive_stereo_tpu_torch.serving import ServingConfig, StereoDepthEngine
@@ -63,23 +66,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         init_flat_stream_state(model, 5e-5, 16, 32, 64, 64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_device_reservoir(16, 32, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceCachedLoader([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_autoencoder([{"color_l/0": np.zeros((1, 32, 32, 3), np.float32)}], num_steps=1)
     assert resolve_device("cpu") == torch.device("cpu")
     ss = init_flat_stream_state(model, 5e-5, 4, 32, 64, 8, device="cpu")
     assert ss.reservoir.left.device.type == ss.log.device.type == "cpu"
 
 
 def test_driver_and_cli_raise_without_cuda(monkeypatch, tmp_path):
-    """adapt_streaming and `adapt --engine flat` run on CUDA unless asked
-    for the CPU: without CUDA they raise before reading any data."""
+    """adapt_streaming (both engines, and the device cache) and `adapt
+    --engine flat` / `--engine pytree` / `--device_cache` run on CUDA
+    unless asked for the CPU: without CUDA they raise before reading any
+    data."""
     from adaptive_stereo_tpu_torch.cli import main
     from adaptive_stereo_tpu_torch.engine import ExperimentConfig, adapt_streaming
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ExperimentConfig(log_dir=str(tmp_path), load_weights_folder=str(tmp_path))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        adapt_streaming(cfg)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["adapt", "--engine", "flat", "--log_dir", str(tmp_path)])
+    cfg.data.batch_size = 1  # the device cache's
+    for kwargs in ({}, {"engine": "pytree"}, {"device_cache": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            adapt_streaming(cfg, **kwargs)
+    for extra in (["--engine", "flat"], ["--engine", "pytree"],
+                  ["--engine", "flat", "--device_cache", "--batch_size", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["adapt", *extra, "--log_dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
 
 

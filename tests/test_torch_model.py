@@ -215,3 +215,24 @@ def test_random_init_is_seeded():
                            sc["stereo_net.filter.0.0.0.weight"])
     assert not torch.equal(sa["stereo_net.filter.0.0.1.running_var"],
                            torch.ones(32))
+
+
+@pytest.mark.parametrize("in_hw, out_hw", [((20, 60), (320, 960)), ((7, 9), (37, 53)),
+                                           ((37, 53), (7, 9))])
+def test_resize_with_the_fixed_order_gradient_is_the_resize(in_hw, out_hw):
+    """The resize whose backward is the transposed resize as two matrix
+    products (the CUDA path of resize_bilinear), run on CPU tensors: the
+    forward equals F.interpolate's, the gradient F.interpolate's autograd
+    within float32 rounding, and two backward passes agree bit for bit."""
+    from adaptive_stereo_tpu_torch.models.stereo_net import _ResizeBilinear
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 3, *in_hw), generator=gen, requires_grad=True)
+    g = torch.rand((2, 3, *out_hw), generator=gen)
+    want = torch.nn.functional.interpolate(x, size=out_hw, mode="bilinear",
+                                           align_corners=False)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    got = _ResizeBilinear.apply(x, out_hw)
+    grads = [torch.autograd.grad(_ResizeBilinear.apply(x, out_hw), x, g)[0] for _ in range(2)]
+    assert torch.equal(got, want) and torch.equal(grads[0], grads[1])
+    np.testing.assert_allclose(grads[0].numpy(), want_grad.numpy(), rtol=1e-5, atol=1e-6)
