@@ -19,6 +19,9 @@ Layout (mirrors adaptive_stereo_tpu/):
   data/        datasets, loaders, PNG / PFM IO, the synthetic generator
   utils/       console banners, run provenance, trials.csv, the OVS
                reservoir and priority queue, the disparity colormap
+  parallel/    torch.distributed scale-out: the mesh, the fleet
+               adaptation step and driver (N streams, one shared model),
+               the data-parallel supervised step
   analysis/    the timing benchmark
   experiments.py  the reference's named experiment configurations
   cli.py       `python -m adaptive_stereo_tpu_torch.cli train | adapt |

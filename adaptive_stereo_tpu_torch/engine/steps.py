@@ -199,19 +199,34 @@ def make_train_step(model: torch.nn.Module, input_scale: int, scales: Sequence[i
     losses are detached 0-d tensors (nothing is read back)."""
 
     def train_step(state: TrainState, batch: Batch):
-        model.train(train_bn)
-        outputs = model(batch[f"color_l/{input_scale}"], batch[f"color_r/{input_scale}"],
-                        side="l", output_cost_volume=False)
-        losses = khamis_robust_loss_multiscale(batch, outputs, scales=scales,
-                                               gt_disp_scale=input_scale)
-        grads = _grads(losses["total_loss"], state.params)
-        if clip_grad_norm:
-            clip_stereo_net_grads(grads, state.n_feature)
-        adam_masked(state, grads)
-        state.step.add_(1)
+        losses, grads = supervised_losses_grads(model, state, batch, input_scale, scales,
+                                                train_bn)
+        apply_train_update(state, grads, clip_grad_norm)
         return state, {name: v.detach() for name, v in losses.items()}
 
     return train_step
+
+
+def supervised_losses_grads(model: torch.nn.Module, state: TrainState, batch: Batch,
+                            input_scale: int, scales: Sequence[int], train_bn: bool):
+    """The forward, multiscale Khamis loss and parameter gradients of a
+    supervised step (make_train_step; parallel/train.py reduces them over
+    ranks in between): returns (losses, grads)."""
+    model.train(train_bn)
+    outputs = model(batch[f"color_l/{input_scale}"], batch[f"color_r/{input_scale}"],
+                    side="l", output_cost_volume=False)
+    losses = khamis_robust_loss_multiscale(batch, outputs, scales=scales,
+                                           gt_disp_scale=input_scale)
+    return losses, _grads(losses["total_loss"], state.params)
+
+
+def apply_train_update(state: TrainState, grads: List[torch.Tensor],
+                       clip_grad_norm: bool) -> None:
+    """The stereo-net clip, an Adam update and the step count, in place."""
+    if clip_grad_norm:
+        clip_stereo_net_grads(grads, state.n_feature)
+    adam_masked(state, grads)
+    state.step.add_(1)
 
 
 def make_eval_step(model: torch.nn.Module, input_scale: int, k: int):

@@ -143,14 +143,45 @@ Phases, in order; any failure raises and the script exits non-zero:
               fails unless kernels 1, 2, 3 and 5 and both backward kernels
               launched and kernel 4 did not (the OOD analysis: no backward
               kernel)
+ 13. fleet    the fleet and data-parallel layer (parallel/) at phase 9's
+              configuration (320x960, k=4, bf16, fused siamese, the tower,
+              VS+ER, ood_threshold 12.76, lr 5e-5, clip) on the one-rank
+              NCCL group make_mesh starts: (a) make_fleet_fwd_bwd's
+              per-stream gradients and FCS at N=2 against
+              make_adapt_forward_backward on each stream alone (JAX's
+              --certify bands, rtol 5e-3, atol 1e-5); (b) one fused fleet
+              step at N=2 with the kernels against the same step on the
+              plain versions, per module, in both bn_modes, bf16 and
+              float32, within FLEET_STEP_LIMITS, a control (a plain step
+              on other frames) outside them; then every kernel call of one
+              bf16 shared-mode step (the merged forwards at batch N) at
+              N=2 and N=4 against its plain version on that call's own
+              inputs (check_kernel_calls); (c) every stream DONE, or
+              every frame diverted, leaves the parameters, Adam moments
+              and count bitwise unchanged, a mixed mask moves them, and
+              remat=True gives the same bits as remat=False; (d)
+              N = 1, 2, 4 in both modes: median ms per fleet step of
+              FLEET_STEPS after WARMUP_STEPS and per stream, device time
+              and busy share, peak memory, launches and all_reduces per
+              step; (e) fleet_adapt, 4 streams on phase 10's novel domain
+              (reservoir 2, validation every 2 steps); (f)
+              make_parallel_train_step at batch 8 and one rank bit for bit
+              against make_train_step (deterministic cuDNN); (g) two
+              spawned ranks of a gloo group on the card (NCCL refuses two
+              ranks on one device), one stream each, two per-stream steps
+              against the same steps on one rank. Fails unless every fleet
+              run launched kernels 1, 2, 3 and 5 and both backward kernels
+              and never kernel 4
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
 whose "launches" count the served frames of phase 4 (kernels 1-4) or the
 adapt steps of phase 9 (the tower), "train_launches" the adapt steps of
 phase 9 for every kernel, "train11_launches" the launches per bare
-train step at batch 8 of phase 11 and "pytree_launches" (with
-"backward_pytree_launches") those per bare pytree adapt step of phase 12;
+train step at batch 8 of phase 11, "pytree_launches" (with
+"backward_pytree_launches") those per bare pytree adapt step of phase 12
+and "fleet_launches" (with "backward_fleet_launches") those per fused
+fleet step at N=4 of phase 13, in each bn_mode;
 "floor_ms" is the launch floor, and the rows
 of kernels 1 and 3 also carry their backward kernel's time, plain
 version's time, bound and launches over the adapt steps of phase 9.
@@ -2703,6 +2734,483 @@ def rest_phase(seed, dev, rows, card, serving, bare_ms, driver_ms, root):
     if not (np.isfinite(ood) and all(np.isfinite(v).all() for v in fcs.values())):
         raise AssertionError("OOD analysis: non-finite FCS or threshold")
     log(f"[rest] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return pytree_ms
+
+
+# Phase 13: the fleet (parallel/). bench.py's step configuration for every
+# stream; FLEET_N streams timed per mode, FLEET_STEPS steps after
+# WARMUP_STEPS; fleet_adapt over FLEET_ADAPT_STEPS frames per stream.
+FLEET_OPTIONS = dict(input_scale=0, k=4, use_er=True, use_vs=True, ood_threshold=12.76,
+                     clip_grad_norm=True, warp_precision="highest")
+FLEET_N = (1, 2, 4)
+FLEET_STEPS = 20
+FLEET_ADAPT_STEPS = 4
+FLEET_MODES = ("per_stream", "shared")
+FLEET_SPAWN_TIMEOUT_S = 300
+# (a) make_fleet_fwd_bwd against make_adapt_forward_backward on each stream
+# alone: JAX's bands (scripts/bench_multistream_tpu.py --certify).
+CERTIFY_RTOL, CERTIFY_ATOL = 5e-3, 1e-5
+# (b) one fused fleet step (N=2) with the kernels against the same step on
+# the plain versions, per mode, dtype and module, phase 9's readings and
+# rule: each limit the geometric mean, rounded down, of the sound reading
+# and the control's on an H100 (PERF.md, §6); a reading whose control
+# was less than 3x it is printed only (shared mode's bf16 tower: 2.7x).
+# Shared mode's bf16 tower is held instead call by call: every kernel call
+# of a shared bf16 step at N=2 and N=4 against its plain version on the
+# call's own inputs (check_kernel_calls, phases 7 and 8's bands).
+FLEET_STEP_LIMITS = {
+    "per_stream": {
+        "bfloat16": {"mono": 3.2e-4, "replay": 1.6e-3, "feature grad": 0.55,
+                     "feature param": 0.069, "aggregation grad": 0.078,
+                     "aggregation param": 8.6e-3, "tower grad": 0.015, "tower param": 9.3e-3},
+        "float32": {"mono": 1.1e-5, "replay": 6.4e-5, "feature grad": 0.063,
+                    "feature param": 8.1e-3, "aggregation grad": 9.1e-3,
+                    "aggregation param": 1.2e-3, "tower grad": 1.4e-3, "tower param": 3.7e-4}},
+    "shared": {
+        "bfloat16": {"mono": 1.3e-4, "replay": 1.9e-3, "feature grad": 0.55,
+                     "feature param": 0.068, "aggregation grad": 0.079,
+                     "aggregation param": 8.7e-3},
+        "float32": {"mono": 1.1e-5, "replay": 6.4e-5, "feature grad": 0.06,
+                    "feature param": 7.3e-3, "aggregation grad": 8.7e-3,
+                    "aggregation param": 1.0e-3, "tower grad": 1.5e-3, "tower param": 7.6e-4}},
+}
+# (g) two ranks against one: the per-stream values of a step within 1e-5
+# absolute and relative, the parameters within 2 lr per applied update
+# (plus one float32 spacing of each, per update) with a median under
+# 0.1 lr (tests/test_torch_parallel.py's bands).
+RANKS_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def fleet_model(seed, dev):
+    """Phase 13's model and train state: bench.py's configuration (k=4,
+    bf16, fused siamese, the tower) from seeded random weights."""
+    from adaptive_stereo_tpu_torch.engine import create_train_state
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+
+    model = random_init_(StereoModel(k=4, dtype=torch.bfloat16, device=dev, fused_siamese=True,
+                                     fused_tower=True), torch.Generator().manual_seed(seed + 13))
+    return model, create_train_state(model, learning_rate=LR)
+
+
+def fleet_frames(rng, n, shape):
+    """n streams' frames of `shape` (H, W) as numpy: colour uniform in [0,
+    1], ground truth uniform in [0, 60)."""
+    h, w = shape
+    return {"color_l/0": rng.rand(n, h, w, 3).astype(np.float32),
+            "color_r/0": rng.rand(n, h, w, 3).astype(np.float32),
+            "gt_disp_l/0": (rng.rand(n, h, w, 1) * 60).astype(np.float32)}
+
+
+def fleet_two_steps(model, state, mesh, seed, shape):
+    """Phase 13 (g)'s run: two per-stream fleet steps of the N=2 fleet, each
+    rank on its rows; returns each step's aux and the state on the host."""
+    from adaptive_stereo_tpu_torch.parallel import (data_sharding, init_fleet_fcs_ema,
+                                                    local_data_slice, make_fused_fleet_step)
+
+    shard = data_sharding(mesh)
+    rng = np.random.RandomState(seed + 14)
+    step = make_fused_fleet_step(model, mesh, **FLEET_OPTIONS)
+    ema = init_fleet_fcs_ema(2 // mesh.world_size, mesh.device)
+    auxes = []
+    for would in ([False, True], [False, False]):
+        b, e = fleet_frames(rng, 2, shape), fleet_frames(rng, 2, shape)
+        _, ema, aux = step(state, ema, {k: shard(v) for k, v in b.items()},
+                           {k: shard(v) for k, v in e.items()}, local_data_slice(would, mesh),
+                           local_data_slice([True, True], mesh))
+        auxes.append({k: v.cpu() for k, v in aux.items()})
+    out = {g: [t.detach().cpu() for t in getattr(state, g)] for g in ("params", "buffers", "m",
+                                                                      "v")}
+    out.update(aux=auxes, count=int(state.count))
+    return out
+
+
+def fleet_rank(rank, world, init_file, seed, device, shape, out_path):
+    """Phase 13 (g): one rank of a two-rank gloo group on the card (NCCL
+    refuses two ranks on one device), run in a spawned process."""
+    from adaptive_stereo_tpu_torch.parallel import (initialize_multihost, make_mesh,
+                                                    replicated_sharding)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    initialize_multihost(f"file://{init_file}", world, rank, backend="gloo")
+    mesh = make_mesh(device=device)
+    model, state = fleet_model(seed, mesh.device)
+    replicated_sharding(mesh)(state)
+    torch.save(fleet_two_steps(model, state, mesh, seed, shape), out_path)
+    torch.distributed.destroy_process_group()
+
+
+def fleet_phase(seed, dev, rows, card, pytree_ms, root):
+    """Phase 13: the fleet and data-parallel layer (parallel/) on the card,
+    with a one-rank NCCL group from make_mesh; (g) two spawned gloo ranks."""
+    import multiprocessing
+    import os
+
+    import adaptive_stereo_tpu_torch.parallel.fleet as fleet_mod
+    from adaptive_stereo_tpu_torch.data import StereoDataset
+    from adaptive_stereo_tpu_torch.engine import (TrainState, live_buffers, live_parameters,
+                                                  make_adapt_forward_backward, make_train_step)
+    from adaptive_stereo_tpu_torch.parallel import (FleetStream, fleet_adapt,
+                                                    init_fleet_fcs_ema, make_fleet_fwd_bwd,
+                                                    make_fused_fleet_step, make_mesh,
+                                                    make_parallel_train_step)
+
+    t_phase = time.perf_counter()
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+    failed = []
+
+    def reset():
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def counts():
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        return got
+
+    mesh = make_mesh(device=dev)
+    log(f"[fleet] mesh: rank {mesh.rank} of {mesh.world_size}, backend "
+        f"{torch.distributed.get_backend()}, device {mesh.device}")
+    rng = np.random.RandomState(seed + 13)
+    to_dev = lambda batch: {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    pair = lambda n: tuple(to_dev(fleet_frames(rng, n, DRIVER_SHAPE)) for _ in range(2))
+    model, state = fleet_model(seed, dev)
+
+    # (a) Certification at N=2: per-stream gradients and FCS of
+    # make_fleet_fwd_bwd against make_adapt_forward_backward on each stream
+    # alone, from the same shared statistics.
+    b, e = pair(2)
+    single = make_adapt_forward_backward(model, 0, 4, use_er=True)
+    grads_n, stats_n, aux_n = make_fleet_fwd_bwd(single)(state, b, e)
+    shared = [t.clone() for t in state.buffers]
+    for i in range(2):
+        g_i, aux_i = single(state, {k: v[i:i + 1] for k, v in b.items()},
+                            {k: v[i:i + 1] for k, v in e.items()})
+        torch._foreach_copy_(state.buffers, shared)
+        excess = max(((g - gs[i]).abs() - CERTIFY_ATOL - CERTIFY_RTOL * g.abs()).max().item()
+                     for g, gs in zip(g_i, grads_n))
+        fcs_err = abs(aux_i["fcs_raw"].item() - aux_n["fcs_raw"][i].item())
+        bitwise = all(torch.equal(g, gs[i]) for g, gs in zip(g_i, grads_n))
+        log(f"[fleet] (a) certify stream {i}: gradients bitwise equal {bitwise}, largest excess "
+            f"over rtol {CERTIFY_RTOL} + atol {CERTIFY_ATOL}: {excess:.3g}; FCS "
+            f"{aux_n['fcs_raw'][i].item():.6g} vs {aux_i['fcs_raw'].item():.6g}")
+        if excess > 0 or fcs_err > CERTIFY_ATOL + CERTIFY_RTOL * abs(aux_i["fcs_raw"].item()):
+            failed.append(f"(a) stream {i}: fleet gradients or FCS outside JAX's bands")
+    del grads_n, stats_n
+
+    # (b) One fused fleet step with the kernels against the same step on the
+    # plain versions from one state, per module, in both modes, bf16 and
+    # float32, beside a control (a plain step on other frames). The state
+    # first takes phase 12's warm-up and counted steps (Adam's first step
+    # moves every entry by +-lr, which makes the parameter readings 0).
+    warm = make_fused_fleet_step(model, mesh, **FLEET_OPTIONS)
+    ema = init_fleet_fcs_ema(2, dev)
+    for _ in range(WARMUP_STEPS + PYTREE_STEPS):
+        warm(state, ema, b, e, [False, False], [True, True])
+    modules = param_modules(model, state.params)
+    recorded = {}
+    adam = fleet_mod.adam_masked
+
+    def recording_adam(st, grads, do_update=None):
+        recorded["grads"] = [g.detach().float().clone() for g in grads]
+        return adam(st, grads, do_update)
+
+    def fork_state(float32=False):
+        m2 = copy_model(model, float32)
+        return m2, TrainState(model=m2, params=live_parameters(m2), n_feature=state.n_feature,
+                              buffers=live_buffers(m2), m=[t.clone() for t in state.m],
+                              v=[t.clone() for t in state.v], count=state.count.clone(),
+                              step=state.step.clone(), lr=state.lr.clone())
+
+    def one_step(bn_mode, plain, frame, float32=False, would=(False, False),
+                 prog=(True, True), threshold=FLEET_OPTIONS["ood_threshold"], remat=False):
+        m2, st2 = fork_state(float32)
+        before = counts()
+        fleet_mod.adam_masked = recording_adam
+        try:
+            with plain_versions() if plain else contextlib.nullcontext():
+                step = make_fused_fleet_step(m2, mesh, **{**FLEET_OPTIONS, "bn_mode": bn_mode,
+                                                          "ood_threshold": threshold,
+                                                          "remat": remat})
+                _, _, aux = step(st2, init_fleet_fcs_ema(2, dev), *frame, list(would),
+                                 list(prog))
+        finally:
+            fleet_mod.adam_masked = adam
+        if plain and counts() != before:
+            raise AssertionError("the plain-version fleet step launched a kernel")
+        return recorded.pop("grads"), [p.detach().float() for p in st2.params], aux, st2
+
+    start = [p.detach().float().clone() for p in state.params]
+
+    def readings(got, ref):
+        (g_a, p_a, aux_a, _), (g_r, p_r, aux_r, _) = got, ref
+        rel = lambda key: ((aux_a[key] - aux_r[key]).abs() / aux_r[key].abs().clamp(min=1e-12)
+                           ).max().item()
+        cat = lambda ts, idx: torch.cat([ts[i].flatten() for i in idx])
+        out = {"mono": rel("Monodepth/total_loss"), "replay": rel("Replay/total_loss"),
+               "do_update": float(not torch.equal(aux_a["do_update"], aux_r["do_update"]))}
+        for module, idx in modules.items():
+            out[f"{module} grad"] = rel_l2(cat(g_a, idx), cat(g_r, idx))
+            upd = (cat(p_r, idx) - cat(start, idx)).abs().median()
+            out[f"{module} param"] = ((cat(p_a, idx) - cat(p_r, idx)).abs().median()
+                                      / upd).item()
+        return out
+
+    frame_a = (b, e)
+    frame_b = pair(2)
+    for bn_mode in FLEET_MODES:
+        for label, limits in FLEET_STEP_LIMITS[bn_mode].items():
+            f32 = label == "float32"
+            plain_a = one_step(bn_mode, True, frame_a, f32)
+            sound = readings(one_step(bn_mode, False, frame_a, f32), plain_a)
+            control = readings(one_step(bn_mode, True, frame_b, f32), plain_a)
+            for key, value in sound.items():
+                limit = limits.get(key)
+                log(f"[fleet] (b) one fleet step N=2 {bn_mode} {label}, kernels vs plain "
+                    f"versions, {key}: {value:.4g}; limit {'-' if limit is None else f'{limit:g}'}"
+                    f"; control (plain, frames B vs A) {control[key]:.4g}")
+                if (key == "do_update" and value) or (limit is not None and value > limit):
+                    failed.append(f"(b) {bn_mode} {label} {key}: sound reading {value:.4g}")
+                if limit is not None and control[key] <= limit:
+                    failed.append(f"(b) {bn_mode} {label} {key}: the control {control[key]:.4g} "
+                                  f"is within {limit:g}")
+    # Every kernel call of one bf16 shared-mode step (the merged forwards at
+    # batch N, the shapes (d) times) at N=2 and N=4, each held against its
+    # plain version on that call's own inputs.
+    for n in (2, 4):
+        m2, st2 = fork_state()
+        step = make_fused_fleet_step(m2, mesh, **{**FLEET_OPTIONS, "bn_mode": "shared"})
+        calls = {}
+        with captured_kernel_calls(calls):
+            step(st2, init_fleet_fcs_ema(n, dev), *(frame_a if n == 2 else pair(n)),
+                 [False] * n, [True] * n)
+        torch.cuda.synchronize()
+        failed += [f"(b) shared bf16 N={n}: {name}" for name in check_kernel_calls(
+            calls, f"fleet shared N={n}", forwards=2, tower=True, backward=True)]
+        del m2, st2, calls
+
+    # (c) Masks: every stream DONE, or every stream's frame diverted, leaves
+    # the parameters, the Adam moments and the count bitwise unchanged (and
+    # with every stream DONE the statistics); a mixed mask moves them.
+    for bn_mode in FLEET_MODES:
+        for label, would, prog, threshold, want in (
+                ("every stream DONE", (False, False), (False, False), 12.76, True),
+                ("every frame diverted", (True, True), (True, True), 1e9, True),
+                ("mixed", (True, False), (True, True), 1e9, False)):
+            _, _, aux, st2 = one_step(bn_mode, False, frame_a, would=would, prog=prog,
+                                      threshold=threshold)
+            same = {g: all(torch.equal(x, y) for x, y in zip(getattr(st2, g), getattr(state, g)))
+                    for g in ("params", "m", "v", "buffers")}
+            same["count"] = torch.equal(st2.count, state.count)
+            log(f"[fleet] (c) {bn_mode}, {label}: do_update {aux['do_update'].tolist()}; "
+                f"unchanged " + ", ".join(f"{g} {v}" for g, v in same.items()))
+            kept = [same[g] for g in ("params", "m", "v", "count")]
+            if label == "every stream DONE":
+                kept.append(same["buffers"])
+            if (want and not all(kept)) or (not want and any(kept)):
+                failed.append(f"(c) {bn_mode} {label}: {same}")
+    # remat changes memory, never results: one step with and without it,
+    # deterministic cuDNN, the same bits (the running statistics included).
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for bn_mode in FLEET_MODES:
+            runs = []
+            for remat in (False, True):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _, _, aux, st2 = one_step(bn_mode, False, frame_a, remat=remat)
+                torch.cuda.synchronize()
+                runs.append((st2, aux, torch.cuda.max_memory_allocated() / 2 ** 30))
+            (st_a, aux_a, mem_a), (st_b, aux_b, mem_b) = runs
+            same = all(torch.equal(x, y) for g in ("params", "m", "v", "buffers")
+                       for x, y in zip(getattr(st_a, g), getattr(st_b, g)))
+            same &= all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+            log(f"[fleet] (c) {bn_mode}, remat=True against remat=False, N=2: the same bits "
+                f"{same}; peak memory {mem_b:.2f} against {mem_a:.2f} GiB")
+            if not same:
+                failed.append(f"(c) {bn_mode}: remat changed a result")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    del frame_b
+
+    # (d) Time per fleet step for N in FLEET_N, in both modes.
+    pytree = {row["name"]: row["pytree_launches"] for row in rows}
+    pytree.update({f"{row['name']} backward": row["backward_pytree_launches"] for row in rows
+                   if "backward_pytree_launches" in row})
+    fleet_launches = {}
+    timings = {}
+    for bn_mode in FLEET_MODES:
+        for n in FLEET_N:
+            step = make_fused_fleet_step(model, mesh, bn_mode=bn_mode, **FLEET_OPTIONS)
+            frame = pair(n)
+            ema = init_fleet_fcs_ema(n, dev)
+            args = (ema, *frame, [False] * n, [True] * n)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(WARMUP_STEPS + FLEET_STEPS):
+                if i == WARMUP_STEPS:
+                    reset()
+                    mesh.all_reduces = 0
+                t0 = time.perf_counter()
+                step(state, *args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            per_step = {name: c / FLEET_STEPS for name, c in counts().items()}
+            reduces = mesh.all_reduces / FLEET_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            require_launches(f"fleet step {bn_mode} N={n}", per_step, absent=("coarse_head",))
+            want = {k: v * (n if bn_mode == "per_stream" else 1) for k, v in pytree.items()}
+            med = statistics.median(times[WARMUP_STEPS:])
+            log(f"[fleet] (d) {bn_mode} N={n}: median {med:.2f} ms per fleet step "
+                f"({med / n:.2f} ms per stream) of {FLEET_STEPS} after {WARMUP_STEPS} warm-up; "
+                f"peak memory {peak:.2f} GiB; all_reduces per step {reduces:g}; launches per "
+                "step " + ", ".join(f"{k}={v:g}" for k, v in per_step.items())
+                + f" (as the pytree step's{' x N' if bn_mode == 'per_stream' else ''}: "
+                f"{per_step == want}); {card}")
+            if per_step != want:
+                failed.append(f"(d) {bn_mode} N={n}: launches per step {per_step}, want {want}")
+            if reduces != 1:
+                failed.append(f"(d) {bn_mode} N={n}: {reduces} all_reduces per step")
+            log(f"[profile] fleet step {bn_mode} N={n}")
+            operators, launches, dev_ms, busy = profile_breakdown(
+                lambda: step(state, *args), repeats=3, top=6, unit="fleet step")
+            timings[(bn_mode, n)] = (med, dev_ms, busy, peak, operators, launches)
+            if n == FLEET_N[-1]:
+                fleet_launches[bn_mode] = per_step
+    for row in rows:
+        row["fleet_launches"] = {m: fleet_launches[m][row["name"]] for m in FLEET_MODES}
+        if f"{row['name']} backward" in fleet_launches[FLEET_MODES[0]]:
+            row["backward_fleet_launches"] = {
+                m: fleet_launches[m][f"{row['name']} backward"] for m in FLEET_MODES}
+    log("[fleet] (d) summary, ms per fleet step / per stream / device ms / busy % / peak GiB / "
+        "host operators / kernel launches (cudaLaunchKernel) per step: "
+        + "; ".join(f"{m} N={n} {t[0]:.2f} / {t[0] / n:.2f} / "
+                    + " / ".join("-" if v is None else f"{v:.{d}f}"
+                                 for v, d in zip(t[1:], (3, 1, 2, 0, 0)))
+                    for (m, n), t in timings.items())
+        + f"; phase 12's bare pytree step {pytree_ms:.2f} ms; {card}")
+
+    # (e) fleet_adapt: 4 streams on phase 10's novel domain (each from
+    # another frame), replay from its training domain.
+    h, w = DRIVER_SHAPE
+
+    class Offset:
+        """A dataset read from frame `offset` on, wrapping around."""
+
+        def __init__(self, ds, offset):
+            self.ds, self.offset = ds, offset
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            return self.ds[(i + self.offset) % len(self.ds)]
+
+    novel_ds, train_ds = (StereoDataset(os.path.join(root, name), "Synthetic", "synth", h, w,
+                                        "train", scales=[0], load_disp_right=False)
+                          for name in ("novel", "train"))
+    streams = [FleetStream(Offset(novel_ds, 3 * i), f"cam{i}", er_dataset=Offset(train_ds, i))
+               for i in range(4)]
+    reset()
+    t0 = time.perf_counter()
+    result = fleet_adapt(model, state, streams, 0, 4, num_steps=FLEET_ADAPT_STEPS,
+                         ood_threshold=1e9, adapt_mode="VS+ER", ovs_buffer_size=2,
+                         ovs_validate_hz=2, clip_grad_norm=True, mesh=mesh, seed=seed)
+    wall = time.perf_counter() - t0
+    got = counts()
+    log(f"[fleet] (e) fleet_adapt, 4 streams x {FLEET_ADAPT_STEPS} steps (VS+ER, reservoir 2, "
+        f"validation every 2 steps) in {wall:.1f} s: {result['streams']}; kernel launches "
+        + ", ".join(f"{k}={v}" for k, v in got.items()))
+    require_launches("fleet_adapt", got, absent=("coarse_head",))
+    if any(s["steps"] != FLEET_ADAPT_STEPS for s in result["streams"]) or len(
+            result["streams"]) != 4:
+        failed.append(f"(e) fleet_adapt summaries: {result['streams']}")
+
+    # (f) make_parallel_train_step at batch 8 with one rank against
+    # make_train_step from the same state: bit for bit (deterministic cuDNN).
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        batch = train_batch(root, range(TRAIN_BATCH), dev)
+        runs = []
+        for make in (lambda m: make_parallel_train_step(m, mesh, 0, [0, 4], True),
+                     lambda m: make_train_step(m, 0, [0, 4], True)):
+            m_f, st_f = fleet_model(seed, dev)
+            st_f, losses = make(m_f)(st_f, batch)
+            runs.append((st_f, losses))
+        (st_p, l_p), (st_t, l_t) = runs
+        same = {g: all(torch.equal(x, y) for x, y in zip(getattr(st_p, g), getattr(st_t, g)))
+                for g in ("params", "buffers", "m", "v")}
+        same["losses"] = all(torch.equal(l_p[k], l_t[k]) for k in l_t) and l_p.keys() == l_t.keys()
+        log(f"[fleet] (f) make_parallel_train_step (one rank) vs make_train_step, batch "
+            f"{TRAIN_BATCH}: bitwise equal " + ", ".join(f"{g} {v}" for g, v in same.items())
+            + f"; total loss {l_p['total_loss'].item():.6g}")
+        if not all(same.values()):
+            failed.append(f"(f) parallel train step vs train step: {same}")
+        del runs, st_p, st_t
+
+        # (g) Two spawned ranks (gloo on CUDA tensors, one stream each)
+        # against the one-rank run of the same two steps.
+        m_g, st_g = fleet_model(seed, dev)
+        ref = fleet_two_steps(m_g, st_g, mesh, seed, DRIVER_SHAPE)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=root)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=fleet_rank, args=(r, 2, os.path.join(work, "store"), seed,
+                                                   str(dev), DRIVER_SHAPE,
+                                                   os.path.join(work, f"rank{r}.pt")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(FLEET_SPAWN_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"(g) the two ranks exited with {codes}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(2)]
+    same_ranks = all(torch.equal(x, y) for g in ("params", "buffers", "m", "v")
+                     for x, y in zip(ranks[0][g], ranks[1][g]))
+    bitwise = all(torch.equal(x, y) for g in ("params", "buffers", "m", "v")
+                  for x, y in zip(ranks[0][g], ref[g]))
+    updates = ref["count"]
+    diffs = torch.cat([(x - y).abs().flatten() for x, y in zip(ranks[0]["params"], ref["params"])])
+    spacing = torch.cat([updates * torch.from_numpy(np.spacing(y.abs().numpy())).flatten()
+                         for y in ref["params"]])
+    aux_ok = True
+    for i, aux in enumerate(ref["aux"]):
+        merged = {k: torch.cat([r["aux"][i][k] for r in ranks]) for k in aux}
+        for k, v in aux.items():
+            if v.dtype == torch.bool:
+                aux_ok &= torch.equal(merged[k], v)
+            else:
+                aux_ok &= bool(((merged[k] - v).abs() <= RANKS_TOL["atol"]
+                                + RANKS_TOL["rtol"] * v.abs()).all())
+    log(f"[fleet] (g) two spawned ranks (gloo on CUDA tensors, one stream each, 2 per-stream "
+        f"steps, {updates} updates) against one rank (NCCL) in {time.perf_counter() - t0:.1f} s: "
+        f"ranks agree bitwise {same_ranks}; bitwise equal to one rank {bitwise}; parameters max "
+        f"diff {diffs.max().item():.3g}, median {diffs.median().item():.3g}; per-stream values "
+        f"within {RANKS_TOL}: {aux_ok}")
+    if not (same_ranks and aux_ok and updates and bool((diffs <= 2 * LR * updates + spacing).all())
+            and diffs.median().item() <= 0.1 * LR):
+        failed.append("(g) two ranks vs one rank outside the stated band")
+    torch.distributed.destroy_process_group()
+    log(f"[fleet] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 13 (fleet): " + "; ".join(failed))
 
 
 def main() -> int:
@@ -2960,14 +3468,16 @@ def main() -> int:
     classic_phase(args.seed, dev, rows, card, bare_ms, driver_ms, driver_root.name)
     # Phase 12: the native voxel grid, the pytree engine, the device cache,
     # the reconstruction gate and the OOD analysis.
-    rest_phase(args.seed, dev, rows, card, (engines[False], frames, p50[False]), bare_ms,
-               driver_ms, driver_root.name)
+    pytree_ms = rest_phase(args.seed, dev, rows, card, (engines[False], frames, p50[False]),
+                           bare_ms, driver_ms, driver_root.name)
+    # Phase 13: the fleet and data-parallel layer.
+    fleet_phase(args.seed, dev, rows, card, pytree_ms, driver_root.name)
     driver_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches",
-            "train11_launches", "pytree_launches", "max_abs_err",
+            "train11_launches", "pytree_launches", "fleet_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
             "backward_plain_ms", "backward_bound_ms", "backward_train_launches",
-            "backward_pytree_launches")
+            "backward_pytree_launches", "backward_fleet_launches")
     for row in rows:
         row["floor_ms"] = floor.ms
     table = [{key: row[key] for key in keys if key in row} for row in rows]
