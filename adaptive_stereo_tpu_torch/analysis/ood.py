@@ -1,6 +1,5 @@
-"""FCS-based OOD analysis, the numeric half (counterpart of
-adaptive_stereo_tpu/analysis/ood.py:19-75; reference
-evaluation/ood_analysis.py).
+"""FCS-based OOD analysis (counterpart of adaptive_stereo_tpu/analysis/ood.py;
+reference evaluation/ood_analysis.py).
 
 Per-image Feature Contrast Scores of a loader (an eval forward, so the
 cost-volume and soft-argmin kernels on the card), the precision / recall
@@ -10,8 +9,11 @@ OOD thresholds (reference :196-236: a percentile of a normal fit to the
 training domain's FCS). The percentile uses the standard library's
 statistics.NormalDist in place of scipy.stats.norm.
 
-Not ported yet: plot_fcs_histogram and plot_precision_recall, which need
-matplotlib.
+The two plots, the FCS histograms of both domains with the fitted normal
+and its percentile line, and the precision / recall curve, are drawn by
+analysis/figure.py in place of matplotlib: the same series (np.histogram
+densities, as plt.hist(density=True) computes them; the normal pdf by its
+formula, with scipy's dtypes) into PDF or SVG.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models import state_dicts_from_jax
+from .figure import subplots
 
 
 def compute_fcs_for_loader(model: torch.nn.Module, variables: Optional[dict], loader,
@@ -77,3 +80,43 @@ def derive_percentile_threshold(train_values: np.ndarray, percentile: float = 0.
     mu = float(train_values.mean())
     sigma = math.sqrt(float(train_values.var()))
     return float(statistics.NormalDist(mu, sigma).inv_cdf(percentile))
+
+
+def normal_pdf(x: np.ndarray, mu, sigma: float) -> np.ndarray:
+    """The normal density at x, as scipy.stats.norm.pdf(x, mu, sigma)
+    computes it: x, mu and sigma as arrays (so x - mu in their own dtype,
+    float32 for float32 FCS), the standardised value in float64."""
+    x, mu, sigma = map(np.asarray, (x, mu, sigma))
+    z = np.asarray((x - mu) / sigma, dtype=np.promote_types(x.dtype, np.float64))
+    return np.exp(-z ** 2 / 2.0) / math.sqrt(2 * math.pi) / sigma
+
+
+def plot_fcs_histogram(train_values: np.ndarray, novel_values: np.ndarray, output_path: str,
+                       percentile: float = 0.05) -> None:
+    """Overlaid train/novel FCS histograms (40 shared bins, densities) with
+    the fitted normal of the training domain and its percentile line
+    (reference :190-236)."""
+    fig, ax = subplots()
+    bins = np.histogram(np.hstack((train_values, novel_values)), bins=40)[1]
+    y1, _ = ax.hist(train_values, bins, color="blue", alpha=0.5, label="train")
+    y2, _ = ax.hist(novel_values, bins, color="red", alpha=0.5, label="novel")
+    ax.set_xlabel("feature contrast score")
+    ax.set_ylabel("frequency")
+    pct_x = derive_percentile_threshold(train_values, percentile)
+    ax.vlines(pct_x, 0, max(y1.max(), y2.max()), colors="black", linestyles=(0, (5, 5)))
+    ax.plot(bins, normal_pdf(bins, train_values.mean(), math.sqrt(train_values.var())),
+            color="black")
+    ax.legend(loc="upper left", fontsize=12.0)  # matplotlib's "large"
+    fig.savefig(output_path)
+
+
+def plot_precision_recall(train_values: np.ndarray, novel_values: np.ndarray,
+                          output_path: str) -> None:
+    """Precision against recall over the cutoffs of precision_recall_curve."""
+    _, pr, re = precision_recall_curve(train_values, novel_values)
+    fig, ax = subplots()
+    ax.plot(re, pr)
+    ax.set_xlabel("recall")
+    ax.set_ylabel("precision")
+    ax.set_ylim(0, 1.05)
+    fig.savefig(output_path)

@@ -4,6 +4,10 @@
 // (native/stereo_native.cpp), function for function, so both packages give
 // the same bits; the port never loads the JAX package's build.
 //
+// One function more than the JAX package's library: crc32c, the checksum of
+// the TensorBoard event files the port writes and reads
+// (utils/event_file.py); the JAX package leaves those to tensorboardX.
+//
 // Built with the host C++ compiler at first use by
 // adaptive_stereo_tpu_torch/data/native.py ($CXX, else c++; -O3 -fPIC
 // -shared -std=c++17 -ffp-contract=off) and called through ctypes. Plain
@@ -15,6 +19,7 @@
 #include <cmath>
 #include <cstdlib>
 #include <algorithm>
+#include <array>
 #include <unordered_map>
 #include <vector>
 
@@ -166,6 +171,26 @@ int64_t voxel_downsample_f32(const float* pts, const float* cols, int64_t n,
     out++;
   }
   return out;
+}
+
+// ---------------------------------------------------------------------------
+// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of n bytes,
+// continuing from `crc` (0 for a new checksum): the checksum of TFRecord
+// framing. Byte-at-a-time through a 256-entry table.
+// ---------------------------------------------------------------------------
+uint32_t crc32c_update(uint32_t crc, const uint8_t* data, int64_t n) {
+  static const std::array<uint32_t, 256> table = [] {  // built once, thread-safe
+    std::array<uint32_t, 256> t{};
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) c = (c & 1u) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+      t[i] = c;
+    }
+    return t;
+  }();
+  crc = ~crc;
+  for (int64_t i = 0; i < n; i++) crc = table[(crc ^ data[i]) & 0xFFu] ^ (crc >> 8);
+  return ~crc;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """The native host library: PFM read, half-pixel bilinear resize, uint8 ->
 float32 and the point-cloud voxel grid, in C++ through ctypes (counterpart
-of adaptive_stereo_tpu/data/native.py).
+of adaptive_stereo_tpu/data/native.py), and CRC-32C for the event files of
+utils/event_file.py.
 
 csrc/stereo_native.cpp is built at the first call with the host C++
 compiler ($CXX, else c++; -O3 -fPIC -shared -std=c++17
@@ -83,7 +84,14 @@ def library() -> ctypes.CDLL:
     lib.u8_to_f32_scaled.restype = None
     lib.voxel_downsample_f32.argtypes = [f32p, f32p, i64, ctypes.c_float, f32p, f32p, i64]
     lib.voxel_downsample_f32.restype = i64
+    lib.crc32c_update.argtypes = [ctypes.c_uint32, ctypes.c_char_p, i64]
+    lib.crc32c_update.restype = ctypes.c_uint32
     return lib
+
+
+def crc32c_native(data: bytes, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of `data`, continuing from `crc`."""
+    return library().crc32c_update(crc, data, len(data))
 
 
 def _fptr(a: np.ndarray):

@@ -27,6 +27,11 @@ and the params (the running statistics carry no gradient, nor do mu/var).
 Its backward is the JAX custom VJP (ops/pallas/aggregation.py:455-467):
 recompute the stack through aggregate_cost_volume_ref and take autograd of
 it, with the incoming gradient cast to float32 and then to the cost's dtype.
+
+Each call that launches the kernels adds aggregation_flops (the plain
+stack's convolutions as FlopCounterMode counts them) and the bytes of its
+launches to the open counts of work.py; the backward's recompute is not
+counted, its autograd is.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, work
 
-__all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref", "tile_plan"]
+__all__ = ["aggregate_cost_volume_cuda", "aggregate_cost_volume_ref", "aggregation_flops",
+           "tile_plan"]
 
 PARAM_NAMES = ("kernels", "biases", "scales", "bn_biases", "final_kernel", "final_bias")
 
@@ -47,6 +53,25 @@ NUM_BN_LAYERS = 4
 CHANNELS = 32
 # Most w positions of one row tile (STEREO_TILE_MAX_W in csrc/conv3d.cuh).
 TILE_MAX_W = 80
+
+
+def aggregation_flops(b: int, d: int, h: int, w: int) -> int:
+    """FlopCounterMode's count of the plain stack on a (b, d, h, w, 32)
+    cost: four 3x3x3 convolutions 32 -> 32 and one 32 -> 1, 2 x
+    multiply-adds over the full window."""
+    n = b * d * h * w
+    return (NUM_BN_LAYERS * work.conv_flops(n, CHANNELS, CHANNELS, 27)
+            + work.conv_flops(n, CHANNELS, 1, 27))
+
+
+def aggregation_bytes(b: int, d: int, h: int, w: int, itemsize: int, train: bool) -> int:
+    """Bytes the stack's launches read and write: each layer's input and
+    output (train mode: the normalisation reads and writes the output once
+    more), and the weights."""
+    n = b * d * h * w
+    layers = NUM_BN_LAYERS * (4 if train else 2) * n * CHANNELS + n * CHANNELS + n
+    weights = (NUM_BN_LAYERS * 27 * CHANNELS * CHANNELS + 27 * CHANNELS)
+    return (layers + weights) * itemsize
 
 
 class TilePlan(NamedTuple):
@@ -169,8 +194,9 @@ class _Aggregation(torch.autograd.Function):
         cost, rmean, rvar, *values = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in (cost, *values)]
-            out = aggregate_cost_volume_ref(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])),
-                                            (rmean, rvar), ctx.train, ctx.eps)[0]
+            with work.uncounted():
+                out = aggregate_cost_volume_ref(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])),
+                                                (rmean, rvar), ctx.train, ctx.eps)[0]
             grads = torch.autograd.grad(out, inputs, g_out.float().to(cost.dtype))
         return (grads[0], None, None, None, None, *grads[1:])
 
@@ -246,6 +272,8 @@ def _launch(cost, params, run_stats, train, eps):
             out.data_ptr(), b, d, h, w, 1, 0, plan.wc, plan.smem, eps, LEAKY_SLOPE, dcode,
             stream), "stereo_conv3d_bn_leaky_forward")
         aggregate_cost_volume_cuda.launches += 1
+    work.add("aggregate_cost_volume", aggregation_flops(b, d, h, w),
+             aggregation_bytes(b, d, h, w, cost.element_size(), train))
     if train:
         return out[..., 0], mu, var
     return out[..., 0], run_stats[0], run_stats[1]

@@ -28,7 +28,9 @@ f_r and the params through the disparity (FCS, mu and var carry no
 gradient, nor do the running statistics). Its backward is the JAX custom
 VJP (ops/pallas/coarse_head.py:288-300): recompute the disparity through
 coarse_head_ref and take autograd of it, with the incoming gradient in
-float32.
+float32. Each launch adds coarse_head_flops (the plain head's convolutions
+as FlopCounterMode counts them) and its bytes to the open counts of
+work.py; the backward's recompute is not counted, its autograd is.
 """
 
 from __future__ import annotations
@@ -40,11 +42,19 @@ import torch
 from ..cost_volume import difference_cost_volume
 from ..fcs import feature_contrast_mean
 from ..soft_argmin import soft_argmin
-from . import _build
+from . import _build, work
 from .aggregation import (CHANNELS, LEAKY_SLOPE, NUM_BN_LAYERS, PARAM_NAMES, _partials,
-                          aggregate_cost_volume_ref, tile_plan)
+                          aggregate_cost_volume_ref, aggregation_flops, tile_plan)
 
-__all__ = ["coarse_head_cuda", "coarse_head_cuda_supported", "coarse_head_ref"]
+__all__ = ["coarse_head_cuda", "coarse_head_cuda_supported", "coarse_head_flops",
+           "coarse_head_ref"]
+
+
+def coarse_head_flops(b: int, h: int, w: int, num_disp: int) -> int:
+    """FlopCounterMode's count of coarse_head_ref on features (b, h, w, 32):
+    the aggregation stack's convolutions (the cost volume, soft-argmin and
+    FCS hold no product)."""
+    return aggregation_flops(b, num_disp, h, w)
 
 # The kernel indexes with 64-bit offsets but passes B*D*h*w as a 32-bit
 # count; this keeps every size it is given inside int32.
@@ -91,8 +101,9 @@ class _CoarseHead(torch.autograd.Function):
         f_l, f_r, rmean, rvar, *values = ctx.saved_tensors
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_() for t in (f_l, f_r, *values)]
-            disp = coarse_head_ref(inputs[0], inputs[1], dict(zip(PARAM_NAMES, inputs[2:])),
-                                   (rmean, rvar), ctx.train, ctx.num_disp, ctx.eps)[0]
+            with work.uncounted():
+                disp = coarse_head_ref(inputs[0], inputs[1], dict(zip(PARAM_NAMES, inputs[2:])),
+                                       (rmean, rvar), ctx.train, ctx.num_disp, ctx.eps)[0]
             grads = torch.autograd.grad(disp, inputs, g_disp.float())
         return (grads[0], grads[1], None, None, None, None, None, *grads[2:])
 
@@ -155,6 +166,12 @@ def _launch(f_l, f_r, params, run_stats, train, num_disp, eps):
             int(train), eps, LEAKY_SLOPE, _build.DTYPE_CODES[cdtype], _build.stream_of(f_l))
     _build.check(status, "stereo_coarse_head_forward")
     coarse_head_cuda.launches += 1
+    # The features, weights and outputs, and the layers' activations, which
+    # the pass writes and reads back through act0 / act1 and the cost.
+    n = b * num_disp * h * w
+    work.add("coarse_head", coarse_head_flops(b, h, w, num_disp),
+             2 * f_l.numel() * f_l.element_size() + kernels.numel() * kernels.element_size()
+             + 10 * n * c * f_l.element_size() + 2 * n * 4 + 2 * disp.numel() * 4)
     return disp, fcs, mu, var
 
 

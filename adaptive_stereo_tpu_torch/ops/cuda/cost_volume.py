@@ -15,7 +15,9 @@ Its plain version is difference_cost_volume_backward, which the Function
 takes for CPU tensors. Each kernel takes 16-byte chunks where C * itemsize
 is a multiple of 16 and every pointer is 16-byte aligned, else one element a
 thread; the C entry points pick. Launches are counted in
-difference_cost_volume_cuda.launches and .backward_launches.
+difference_cost_volume_cuda.launches and .backward_launches, and each
+launch adds its work to the open counts of work.py (no flops: the plain
+version holds no product).
 """
 
 from __future__ import annotations
@@ -23,10 +25,16 @@ from __future__ import annotations
 import torch
 
 from ..cost_volume import difference_cost_volume as difference_cost_volume_ref
-from . import _build
+from . import _build, work
 
 __all__ = ["difference_cost_volume_backward", "difference_cost_volume_cuda",
-           "difference_cost_volume_ref"]
+           "difference_cost_volume_flops", "difference_cost_volume_ref"]
+
+
+def difference_cost_volume_flops(b: int, h: int, w: int, c: int, num_disp: int) -> int:
+    """FlopCounterMode's count of the plain version (subtractions and
+    copies, no product): 0, forward and backward."""
+    return 0
 
 
 def difference_cost_volume_backward(g: torch.Tensor):
@@ -82,6 +90,8 @@ def _launch(f_l: torch.Tensor, f_r: torch.Tensor, num_disp: int) -> torch.Tensor
             _build.DTYPE_CODES[f_l.dtype], _build.stream_of(f_l))
     _build.check(status, "stereo_cost_volume_forward")
     difference_cost_volume_cuda.launches += 1
+    work.add("difference_cost_volume", difference_cost_volume_flops(b, h, w, c, num_disp),
+             (2 * f_l.numel() + out.numel()) * f_l.element_size())
     return out
 
 
@@ -102,6 +112,8 @@ def _launch_backward(g: torch.Tensor):
             _build.DTYPE_CODES[g.dtype], _build.stream_of(g))
     _build.check(status, "stereo_cost_volume_backward")
     difference_cost_volume_cuda.backward_launches += 1
+    work.add("difference_cost_volume backward", difference_cost_volume_flops(b, h, w, c, d),
+             (g.numel() + 2 * d_fl.numel()) * g.element_size())
     return d_fl, d_fr
 
 

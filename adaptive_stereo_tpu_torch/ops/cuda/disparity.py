@@ -12,7 +12,8 @@ custom VJP (ops/pallas/disparity.py:89-100, plain jnp there):
 d disp / d cost_j = p_j * (j - disp), and FCS is a stop-gradient. Its plain
 version is soft_argmin_fcs_backward, which the Function takes for CPU
 tensors. Launches are counted in soft_argmin_fcs_cuda.launches and
-.backward_launches.
+.backward_launches, and each launch adds its work to the open counts of
+work.py (no flops: the plain version holds no product).
 """
 
 from __future__ import annotations
@@ -23,9 +24,16 @@ import torch
 
 from ..fcs import feature_contrast_mean
 from ..soft_argmin import soft_argmin
-from . import _build
+from . import _build, work
 
-__all__ = ["soft_argmin_fcs_backward", "soft_argmin_fcs_cuda", "soft_argmin_fcs_ref"]
+__all__ = ["soft_argmin_fcs_backward", "soft_argmin_fcs_cuda", "soft_argmin_fcs_flops",
+           "soft_argmin_fcs_ref"]
+
+
+def soft_argmin_fcs_flops(b: int, d: int, h: int, w: int) -> int:
+    """FlopCounterMode's count of the plain version (softmax, top-2 and
+    sums, no product): 0, forward and backward."""
+    return 0
 
 
 def soft_argmin_fcs_ref(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,6 +95,8 @@ def _launch(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             _build.stream_of(cost))
     _build.check(status, "stereo_soft_argmin_fcs_forward")
     soft_argmin_fcs_cuda.launches += 1
+    work.add("soft_argmin_fcs", soft_argmin_fcs_flops(b, d, h, w),
+             (cost.numel() + 2 * disp.numel()) * 4)
     return disp, fcs
 
 
@@ -108,6 +118,8 @@ def _launch_backward(cost: torch.Tensor, disp: torch.Tensor,
             h * w, _build.stream_of(cost))
     _build.check(status, "stereo_soft_argmin_backward")
     soft_argmin_fcs_cuda.backward_launches += 1
+    work.add("soft_argmin_fcs backward", soft_argmin_fcs_flops(b, d, h, w),
+             (2 * cost.numel() + 2 * disp.numel()) * 4)
     return g_cost
 
 

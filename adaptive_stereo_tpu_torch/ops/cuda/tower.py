@@ -33,7 +33,9 @@ does: the bias is added before the conv output is rounded, and the residual
 add before the activation is rounded. In bfloat16 the convs with 32 input
 channels and every weight gradient run on the tensor cores. Launches are counted per chain:
 tower_forward_cuda.launches (15 in train mode, 8 in eval mode) and
-tower_backward_cuda.launches (31).
+tower_backward_cuda.launches (31). Each chain that tower_cuda runs adds
+tower_flops (the plain tower's convolutions, or their gradients, as
+FlopCounterMode counts them) and its bytes to the open counts of work.py.
 """
 
 from __future__ import annotations
@@ -43,10 +45,10 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, work
 
-__all__ = ["DILATIONS", "tower_backward_cuda", "tower_cuda", "tower_forward_cuda",
-           "tower_ref"]
+__all__ = ["DILATIONS", "tower_backward_cuda", "tower_cuda", "tower_flops",
+           "tower_forward_cuda", "tower_ref"]
 
 DILATIONS = (1, 1, 2, 4, 8, 1, 1, 1)
 NUM_LAYERS = 8
@@ -70,6 +72,31 @@ Params = Dict[str, Sequence[torch.Tensor]]
 
 def _channels(p: int) -> Tuple[int, int]:
     return (IN_CHANNELS if p == 0 else CHANNELS), (1 if p == NUM_LAYERS - 1 else CHANNELS)
+
+
+def tower_flops(b: int, h: int, w: int, backward: bool = False,
+                input_grad: Sequence[bool] = (True,) * NUM_LAYERS,
+                weight_grad: Sequence[bool] = (True,) * NUM_LAYERS) -> int:
+    """FlopCounterMode's count of tower_ref at (b, h, w): each layer's 3x3
+    conv, 2 x multiply-adds over the full window. backward: per layer p,
+    its input gradient if input_grad[p] and its weight gradient if
+    weight_grad[p], each as many flops as the conv (autograd's
+    convolution_backward with that output mask)."""
+    total = 0
+    for p in range(NUM_LAYERS):
+        cin, cout = _channels(p)
+        conv = work.conv_flops(b * h * w, cin, cout, 9)
+        total += (conv * (bool(input_grad[p]) + bool(weight_grad[p])) if backward else conv)
+    return total
+
+
+def _tower_bytes(b: int, h: int, w: int, itemsize: int, backward: bool) -> int:
+    """Bytes of a chain: each layer reads its input and writes its output
+    (the backward reads them and the incoming gradient, and writes the
+    input gradient), and the weights."""
+    per_layer = sum((cin + cout) * b * h * w + 9 * cin * cout
+                    for cin, cout in map(_channels, range(NUM_LAYERS)))
+    return (3 if backward else 1) * per_layer * itemsize
 
 
 def tower_ref(x0: torch.Tensor, params: Params, run_stats: Tuple[torch.Tensor, torch.Tensor],
@@ -304,6 +331,8 @@ class _Tower(torch.autograd.Function):
         kernels, biases = list(wb[:NUM_LAYERS]), list(wb[NUM_LAYERS:])
         y7, mu, var, xs, ys = tower_forward_cuda(x0, kernels, biases, gammas, betas,
                                                  (rmean, rvar), train, eps)
+        b, h, w, _ = x0.shape
+        work.add("tower", tower_flops(b, h, w), _tower_bytes(b, h, w, x0.element_size(), False))
         ctx.train, ctx.eps = train, eps
         ctx.save_for_backward(x0, gammas, betas, mu, var, *kernels, *xs, *ys)
         ctx.mark_non_differentiable(mu, var)
@@ -319,6 +348,17 @@ class _Tower(torch.autograd.Function):
         ys = rest[NUM_LAYERS + NUM_BN:]
         dx0, dws, dbs, dgamma, dbeta = tower_backward_cuda(
             g_y7, x0, list(xs), list(ys), list(kernels), gammas, betas, mu, var, ctx.eps)
+        # The plain tower's autograd takes a layer's input gradient when
+        # anything before the layer needs a gradient, its weight gradient
+        # when its kernel does.
+        needs = ctx.needs_input_grad
+        kernel_grad = needs[7:7 + NUM_LAYERS]
+        upstream = [needs[0] or any(needs[5:7]) or any(kernel_grad[:p])
+                    or any(needs[7 + NUM_LAYERS:7 + NUM_LAYERS + p]) for p in range(NUM_LAYERS)]
+        upstream[0] = needs[0]
+        b, h, w, _ = x0.shape
+        work.add("tower backward", tower_flops(b, h, w, True, upstream, kernel_grad),
+                 _tower_bytes(b, h, w, x0.element_size(), True))
         return (dx0, None, None, None, None, dgamma, dbeta, *dws, *dbs)
 
 

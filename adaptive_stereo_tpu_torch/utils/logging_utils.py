@@ -2,8 +2,9 @@
 (counterpart of adaptive_stereo_tpu/utils/logging_utils.py; behavioral
 contract from reference train.py:25-71 and adapt.py:175-184,247-271).
 
-The port does not import tensorboardX, so MetricsWriter behaves as the JAX
-package's does without it: the console banner, and no event file.
+MetricsWriter writes TensorBoard event files through utils/event_file.py
+(the port imports no tensorboardX): the scalars and images of the JAX
+package's writer, which tensorboard reads alike, and the console banner.
 TrialsLog writes the same trials.csv as the JAX package's pandas table
 (columns in order of first appearance, a column with a missing cell
 written as floats, a missing or NaN cell empty), with the csv module.
@@ -13,11 +14,16 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
+import torch
+
+from .event_file import EventFileWriter
+from .visualization import apply_disparity_colormap
 
 
 def git_sha(default: str = "unknown") -> str:
@@ -46,21 +52,54 @@ def write_opt_json(log_path: str, cfg) -> dict:
     return d
 
 
+def _contains_prefix(name: str, prefixes: Iterable[str]) -> bool:
+    return any(p in name for p in prefixes)
+
+
+def _first_on_host(v) -> np.ndarray:
+    """The first batch element of a tensor or array as float32 numpy."""
+    x = v[0]
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
 class MetricsWriter:
-    """The reference's console banner; scalars and images go nowhere (the
-    JAX package's writer without tensorboardX)."""
+    """A TensorBoard event file in log_dir (utils/event_file.py) and the
+    reference's console banner."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
+        self._writer = EventFileWriter(log_dir)
 
     def add_scalar(self, name: str, value, step: int) -> None:
-        """No event file: nothing to write."""
+        self._writer.add_scalar(name, float(value), step)
 
     def add_image(self, name: str, img_hwc: np.ndarray, step: int) -> None:
-        """No event file: nothing to write."""
+        self._writer.add_image(name, img_hwc, step)
 
-    def log_images(self, inputs: Dict, outputs: Dict, step: int, skip_prefixes=()) -> None:
-        """No event file: nothing to write."""
+    def log_images(self, inputs: Dict, outputs: Dict, step: int,
+                   skip_prefixes: Iterable[str] = ("cost_volume", "fcs")) -> None:
+        """Colorized disparity / raw RGB panels of the first batch element
+        (reference train.py:54-71 log_images; JAX logging_utils.py:67-95):
+        keys containing 'disp' get the per-image-normalized colormap, other
+        image-shaped entries go through raw, and names containing a skipped
+        prefix (the cost volumes and FCS maps) are left out."""
+        for io in (inputs, outputs):
+            for name, v in io.items():
+                if _contains_prefix(name, skip_prefixes):
+                    continue
+                arr = _first_on_host(v)
+                if arr.ndim != 3:
+                    continue
+                if "disp" in name:
+                    viz = apply_disparity_colormap(arr)
+                else:
+                    viz = np.clip(arr, 0.0, 1.0)
+                    if viz.shape[-1] == 1:
+                        viz = np.repeat(viz, 3, axis=-1)
+                    elif viz.shape[-1] != 3:
+                        continue
+                self.add_image(name, viz, step)
 
     def log_scalars(self, metrics: Dict, losses: Dict, examples_per_sec: float,
                     epoch: int, step: int) -> None:
@@ -82,7 +121,13 @@ class MetricsWriter:
         print("=" * 75 + "\n")
 
     def close(self) -> None:
-        """Nothing to close."""
+        self._writer.close()
+
+
+def pandas_float_cell(v) -> str:
+    """A float64 cell as pandas' to_csv writes it: empty for NaN, else repr."""
+    v = float(v)
+    return "" if math.isnan(v) else repr(v)
 
 
 def _parse_cell(text: str):
@@ -131,8 +176,8 @@ class TrialsLog:
         ints = all(isinstance(v, (int, np.integer)) and not isinstance(v, bool)
                    for v in values)
         # pandas writes a missing or NaN cell as "" and floats by repr.
-        return lambda v: ("" if v is None or (not ints and np.isnan(float(v)))
-                          else str(int(v)) if ints else repr(float(v)))
+        return lambda v: ("" if v is None else str(int(v)) if ints
+                          else pandas_float_cell(v))
 
     def _write(self) -> None:
         fmt = {c: self._format(c) for c in self.columns}

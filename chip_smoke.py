@@ -254,6 +254,18 @@ TRAIN_FRAMES = (16, 2)
 TRAIN_BATCH = 8
 BARE_TRAIN_STEPS = 10    # timed bare train steps, after WARMUP_STEPS
 PYTREE_STEPS = 5         # phase 12: counted bare pytree adapt steps, after WARMUP_STEPS
+# Phase 14: cost volumes of CV_FRAMES synthetic frames at phase 4's serving
+# input CV_SHAPE (a dataset a fourth spawned writer makes while phases 3-9
+# run); the adaptation suite cut to SUITE_STEPS steps a method; the kernels
+# a trace of served frames must name.
+CV_FRAMES = 5
+CV_SHAPE = (320, 1216)
+SUITE_STEPS = 4
+PROFILE_ITERS = {"forward": 20, "step": 10}
+TRACE_KERNELS = ("cost_volume_kernel", "conv3d_layer_kernel", "soft_argmin_fcs_kernel")
+# Values a later phase reads: phase 10's intervals between adapt steps,
+# phase 12's FCS of both domains.
+CARRY = {}
 # Tower, f32 (phase 7): outputs and buffers within 1e-3 + 1e-4 |ref|, mu/var
 # within 1e-4 + 1e-4 |ref| (float32 sums in other orders; 1.3e-4 was
 # measured on an H100 at |ref| = 93). bf16: the kernel chain's error against
@@ -1480,7 +1492,7 @@ def training_phase(seed, dev, rows):
 
 
 def generate_driver_data(root: str, seed: int):
-    """Start generating the datasets of phases 10 and 11 in three spawned
+    """Start generating the datasets of phases 10, 11 and 14 in three spawned
     processes (the numpy generator takes about half a second a 320x960
     frame), so they are written while phases 3-9 run. Returns (pool,
     futures)."""
@@ -1500,7 +1512,10 @@ def generate_driver_data(root: str, seed: int):
                     max_disp=40.0, seed=seed),
         pool.submit(generate_synthetic_dataset, f"{root}/train16", name="synth",
                     num_train=TRAIN_FRAMES[0], num_val=TRAIN_FRAMES[1], height=h, width=w,
-                    max_disp=40.0, seed=seed + 20)]
+                    max_disp=40.0, seed=seed + 20),
+        pool.submit(generate_synthetic_dataset, f"{root}/serve14", name="synth",
+                    num_train=CV_FRAMES, num_val=1, height=CV_SHAPE[0], width=CV_SHAPE[1],
+                    max_disp=40.0, seed=seed + 40)]
     return pool, futures
 
 
@@ -1687,6 +1702,7 @@ def driver_phase(seed, dev, rows, card, bare_ms, root, data):
         starts = calls["adapt"]
         gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
         driver_ms = statistics.median(gaps)
+        CARRY["driver_gaps"] = gaps
         log(f"[driver] run A: {wall:.1f} s wall; median interval between adapt-step calls inside "
             f"the driver {driver_ms:.2f} ms against phase 9's bare step {bare_ms:.2f} ms "
             f"(x{driver_ms / bare_ms:.2f}; the driver's own host overhead "
@@ -2725,6 +2741,7 @@ def rest_phase(seed, dev, rows, card, serving, bare_ms, driver_ms, root):
     check_launches("compute_fcs_for_loader", absent=("coarse_head", "tower_backward",
                                                       "difference_cost_volume backward",
                                                       "soft_argmin_fcs backward"))
+    CARRY["fcs"] = fcs
     ood = derive_percentile_threshold(fcs["training"], 0.05)
     pr = compute_precision_recall(fcs["training"], fcs["novel"], ood)
     log("[rest] FCS per image: " + "; ".join(
@@ -3212,6 +3229,328 @@ def fleet_phase(seed, dev, rows, card, pytree_ms, root):
     if failed:
         raise AssertionError("phase 13 (fleet): " + "; ".join(failed))
 
+def check_pdf(path, texts):
+    """Fail unless path is a PDF whose every xref offset lands on its
+    object and whose content stream draws `texts` (the structural check of
+    tests/test_torch_analysis.py)."""
+    import re
+
+    with open(path, "rb") as f:
+        data = f.read()
+    start = int(re.search(rb"startxref\s+(\d+)", data).group(1))
+    lines = data[start:].split(b"\n")
+    ok = data.startswith(b"%PDF-") and lines[0] == b"xref"
+    count = int(lines[1].split()[1]) if ok else 0
+    for i, entry in enumerate(lines[2:2 + count]):
+        offset, _gen, kind = entry.split()
+        ok &= len(entry) == 19 and (kind == b"f" or data[int(offset):].startswith(
+            f"{i} 0 obj".encode()))
+    stream = data[data.find(b"stream\n") + 7:data.find(b"endstream")]
+    missing = [t for t in texts if "({}) Tj".format(
+        t.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)")).encode() not in stream]
+    if not ok or count < 6 or missing:
+        raise AssertionError(f"{path}: not a sound PDF (xref ok {ok}, {count} entries) or "
+                             f"texts missing {missing}")
+    return len(data)
+
+
+@contextlib.contextmanager
+def plain_coarse_head():
+    """Route the fused coarse head to its plain version (plain_versions()
+    covers kernels 1, 2, 3 and 5)."""
+    import adaptive_stereo_tpu_torch.models.aggregation as agg
+    from adaptive_stereo_tpu_torch.ops.cuda import coarse_head_ref
+
+    saved = agg.coarse_head_cuda
+    agg.coarse_head_cuda = coarse_head_ref
+    try:
+        yield
+    finally:
+        agg.coarse_head_cuda = saved
+
+
+def analysis_phase(seed, dev, rows, card, engines, frames, root):
+    """Phase 14: the rest of analysis/ on the card. engines: phase 4's
+    {fused_coarse_head: StereoDepthEngine}; frames: its (left, right)
+    frames; root: the datasets and weights of phases 10-14."""
+    import dataclasses
+    import os
+
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+    import adaptive_stereo_tpu_torch.experiments as experiments
+    from adaptive_stereo_tpu_torch.analysis import (collate_trials, plot_fcs_histogram,
+                                                    plot_precision_recall, results_to_csv)
+    from adaptive_stereo_tpu_torch.analysis.cost_volume import (plot_cost_volume_slices,
+                                                                save_cost_volumes)
+    from adaptive_stereo_tpu_torch.analysis.profiling import achieved_flops, count_work, trace
+    from adaptive_stereo_tpu_torch.analysis.results import (plot_adaptation_curves,
+                                                            plot_gradient_updates_bar)
+    from adaptive_stereo_tpu_torch.analysis.tb_extract import read_scalars, scalars_to_csv
+    from adaptive_stereo_tpu_torch.data import BatchLoader, StereoDataset
+    from adaptive_stereo_tpu_torch.engine import init_flat_stream_state, make_flat_streaming_steps
+    from adaptive_stereo_tpu_torch.models import StereoModel, random_init_
+    from adaptive_stereo_tpu_torch.ops.cuda import aggregation_flops, coarse_head_flops
+    from adaptive_stereo_tpu_torch.utils.event_file import EventFileWriter
+
+    t_phase = time.perf_counter()
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+    out = os.path.join(root, "analysis14")
+    peak = PEAK_OPS_PER_S["bf16_tensor"]
+
+    def reset():
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def counts():
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        return got
+
+    # (a) Cost volumes: save_cost_volumes on phase 4's default-head model
+    # (320x1216, k=4, bf16) over CV_FRAMES synthetic frames, every kernel
+    # call held against its plain version, the dumps against the
+    # aggregation kernel's outputs; then the slice plots.
+    engine = engines[False]
+    cfg = engine.config
+    h, w, k = cfg.model_input_height, cfg.model_input_width, cfg.stereonet_k
+    if (h, w) != CV_SHAPE:
+        raise AssertionError(f"phase 14's dataset is {CV_SHAPE}, the serving input {(h, w)}")
+    ds = StereoDataset(os.path.join(root, "serve14"), "Synthetic", "synth", h, w, "train",
+                       scales=[0, k], load_disp_right=False)
+    calls = {}
+    cv_dir = os.path.join(out, "cost_volumes")
+    reset()
+    t0 = time.perf_counter()
+    with captured_kernel_calls(calls):
+        saved = save_cost_volumes(engine.model, None, BatchLoader(ds, 1, shuffle=False,
+                                                                  num_workers=2),
+                                  cv_dir, cfg.input_scale, k, CV_FRAMES)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    got = counts()
+    num_disp = engine.model.stereo_net.num_disp
+    per_frame = {"difference_cost_volume": 1, "aggregate_cost_volume": 5, "soft_argmin_fcs": 1}
+    want = {name: CV_FRAMES * per_frame.get(name, 0) for name in got}
+    log(f"[analysis] save_cost_volumes: {saved} frames {h}x{w} k={k} {cfg.compute_dtype}, D = "
+        f"{num_disp}, {cv_s:.2f} s; kernel launches "
+        + ", ".join(f"{n}={c}" for n, c in got.items()))
+    expect_launches("save_cost_volumes", got, want)
+    failed = check_kernel_calls(calls, "analysis", CV_FRAMES, tower=False, backward=False)
+    if saved != CV_FRAMES or failed:
+        raise AssertionError(f"save_cost_volumes: {saved} saved; kernel calls outside their "
+                             f"bands: {failed}")
+    equal = []
+    for i, rec in enumerate(calls["aggregation"]):
+        dump = np.load(os.path.join(cv_dir, f"{i}_cost_volume.npy"))
+        equal.append(dump.shape == (num_disp, h // 2 ** k, w // 2 ** k) and torch.equal(
+            torch.from_numpy(dump), rec["out"][0][0].float().cpu()))
+    log(f"[analysis] dumped volumes bitwise equal to the aggregation kernel's outputs: {equal}")
+    if not all(equal):
+        raise AssertionError("a dumped cost volume differs from the kernel's output")
+    t0 = time.perf_counter()
+    plot_cost_volume_slices(cv_dir, saved)
+    sizes = [check_pdf(os.path.join(cv_dir, f"{i}_cost_volume_slice.pdf"),
+                       ["disparity", "feature similarity score C(u, v)", "max", "mean"])
+             for i in range(saved)]
+    log(f"[analysis] plot_cost_volume_slices: {saved} PDFs ({min(sizes)}-{max(sizes)} bytes) "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # (b) cost_analysis and achieved_flops of three workloads, the flops
+    # with the kernels against the same call on the plain versions.
+    left, right = (torch.from_numpy(x[None]).to(dev) for x in frames[0])
+
+    def forward(model):
+        def fn():
+            with torch.no_grad():
+                return model(left, right)
+        return fn
+
+    dh, dw = DRIVER_SHAPE
+    step_model = random_init_(StereoModel(k=4, input_scale=0, dtype=torch.bfloat16, device=dev,
+                                          fused_siamese=True, fused_tower=True),
+                              torch.Generator().manual_seed(seed + 9))
+    adapt = make_flat_streaming_steps(step_model, 0, 4, use_er=True, use_vs=True,
+                                      ood_threshold=12.76, clip_grad_norm=True,
+                                      fused_er_forward=True)[0]
+    rng = np.random.RandomState(seed + 14)
+    to_dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    l9, r9, gt9 = to_dev(rng.rand(1, dh, dw, 3)), to_dev(rng.rand(1, dh, dw, 3)), to_dev(
+        rng.rand(1, dh, dw, 1) * 60)
+    state = [init_flat_stream_state(step_model, LR, 16, dh, dw, 64, seed=seed, device=dev)]
+
+    def step():
+        state[0] = adapt(state[0], l9, r9, gt9, l9, r9, gt9, 0)
+        return state[0].log
+
+    hc, wc = h // 2 ** k, w // 2 ** k
+    workloads = [
+        ("serving forward, default head", forward(engines[False].model), "forward",
+         {"aggregate_cost_volume": aggregation_flops(1, num_disp, hc, wc),
+          "difference_cost_volume": 0, "soft_argmin_fcs": 0}),
+        ("serving forward, fused head", forward(engines[True].model), "forward",
+         {"coarse_head": coarse_head_flops(1, hc, wc, num_disp)}),
+        ("adapt step (phase 9's)", step, "step", None)]
+    for label, fn, kind, per_call in workloads:
+        fn()
+        torch.cuda.synchronize()
+        kern = count_work(fn)
+        with plain_versions(), plain_coarse_head():
+            plain = count_work(fn)
+        flops = kern["aten_flops"] + kern["kernel_flops"]
+        plain_flops = plain["aten_flops"] + plain["kernel_flops"]
+        decomposed = (None if per_call is None else
+                      sum(kern["kernel_calls"].get(n, 0) * f for n, f in per_call.items()))
+        stats = achieved_flops(fn, iters=PROFILE_ITERS[kind], device=dev)
+        log(f"[analysis] {label}: flops {flops} (aten {kern['aten_flops']} + the wrappers' "
+            f"{kern['kernel_flops']}: " + ", ".join(
+                f"{n} {c} calls {kern['kernel_flops_by_name'][n]}"
+                for n, c in sorted(kern["kernel_calls"].items()))
+            + f"); on the plain versions {plain_flops}; bytes accessed "
+            f"{kern['aten_bytes'] + kern['kernel_bytes']} (plain {plain['aten_bytes']}); "
+            f"achieved_flops: seconds_per_call {stats['seconds_per_call']!r}, model_flops "
+            f"{stats['model_flops']!r}, achieved_tflops {stats['achieved_tflops']!r} "
+            f"({100 * stats['achieved_tflops'] * 1e12 / peak:.3f} % of the bf16 dense peak "
+            f"{peak / 1e12:g} TFLOP/s, host clock); {card}")
+        if flops != plain_flops or stats["model_flops"] != flops or plain["kernel_flops"] or (
+                decomposed is not None and decomposed != kern["kernel_flops"]):
+            raise AssertionError(f"{label}: flops through the kernels {flops} (the wrappers' "
+                                 f"{kern['kernel_flops']}, by their functions {decomposed}) "
+                                 f"against the plain versions' {plain_flops}")
+    trace_dir = os.path.join(out, "trace")
+    t0 = time.perf_counter()
+    trace(lambda: engine.process(*frames[0]), log_dir=trace_dir, iters=3, device=dev)
+    with open(trace.last_path) as f:
+        events = json.load(f)["traceEvents"]
+    named = {name: sum(name in str(e.get("name", "")) for e in events) for name in TRACE_KERNELS}
+    log(f"[analysis] trace of 3 served frames: {os.path.basename(trace.last_path)}, "
+        f"{os.path.getsize(trace.last_path)} bytes, {len(events)} events, "
+        f"{time.perf_counter() - t0:.2f} s; events naming the kernels: "
+        + ", ".join(f"{n} {c}" for n, c in named.items()))
+    if any(c < 3 for c in named.values()):
+        raise AssertionError(f"the trace does not name the port's kernels: {named}")
+
+    # (c) The adaptation suite on phase 10's data, its results and event files.
+    novel, train = os.path.join(root, "novel"), os.path.join(root, "train")
+    suite_dir = os.path.join(out, "suite")
+    paper_config = experiments.adaptation_config
+
+    def on_synthetic(*args, **kw):
+        """The paper protocol's configuration on phase 10's synthetic domains."""
+        c = paper_config(*args, **kw)
+        return dataclasses.replace(
+            c, data=dataclasses.replace(c.data, dataset_path=novel, dataset_name="Synthetic",
+                                        split="synth", num_workers=4),
+            adapt=dataclasses.replace(c.adapt, train_dataset_path=train,
+                                      train_dataset_name="Synthetic", train_split="synth"))
+
+    writes = {"records": 0, "bytes": 0, "seconds": 0.0}
+    write = EventFileWriter._write
+
+    def timed_write(self, event):
+        t = time.perf_counter()
+        before = self.bytes_written
+        write(self, event)
+        writes["seconds"] += time.perf_counter() - t
+        writes["records"] += 1
+        writes["bytes"] += self.bytes_written - before
+
+    starts = []
+    make_steps = sd.make_flat_streaming_steps
+
+    def timed_steps(*a, **kw):
+        adapt_fn, *rest = make_steps(*a, **kw)
+
+        def adapt_t(*args):
+            starts.append(time.perf_counter())
+            return adapt_fn(*args)
+        return (adapt_t, *rest)
+
+    reset()
+    t0 = time.perf_counter()
+    experiments.adaptation_config = on_synthetic
+    EventFileWriter._write = timed_write
+    sd.make_flat_streaming_steps = timed_steps
+    try:
+        trials = experiments.run_adaptation_suite(
+            "flying_to_vk01", {}, os.path.join(root, "weights"), log_dir=suite_dir,
+            streaming=True, device=dev, num_steps=SUITE_STEPS, height=dh, width=dw,
+            eval_hz=SUITE_STEPS, ovs_validate_hz=2)
+    finally:
+        experiments.adaptation_config = paper_config
+        EventFileWriter._write = write
+        sd.make_flat_streaming_steps = make_steps
+    suite_s = time.perf_counter() - t0
+    got = counts()
+    log(f"[analysis] run_adaptation_suite (flying_to_vk01's protocol on phase 10's domains, "
+        f"{SUITE_STEPS} steps a method, {dh}x{dw}): {suite_s:.1f} s; kernel launches "
+        + ", ".join(f"{n}={c}" for n, c in got.items()))
+    require_launches("run_adaptation_suite", got, absent=("coarse_head", "tower_forward",
+                                                           "tower_backward"))
+    steps_run = len(trials) * SUITE_STEPS
+    table = collate_trials(trials, steps=(SUITE_STEPS,))
+    results_csv = os.path.join(out, "results.csv")
+    results_to_csv(trials, results_csv, steps=(SUITE_STEPS,))
+    with open(results_csv, newline="") as f:
+        result_rows = list(csv.reader(f))
+    plot_adaptation_curves(table, os.path.join(out, "curves.pdf"))
+    plot_gradient_updates_bar(table, os.path.join(out, "bar.pdf"), step=SUITE_STEPS)
+    check_pdf(os.path.join(out, "curves.pdf"), ["ADAPT domain", "TRAIN domain", "EPE"])
+    check_pdf(os.path.join(out, "bar.pdf"), [f"gradient updates @ {SUITE_STEPS} steps"])
+    log(f"[analysis] results.csv: {result_rows[0]}; " + "; ".join(
+        ",".join(r) for r in result_rows[1:]))
+    if len(result_rows) != 1 + 2 + 2 * len(trials):
+        raise AssertionError(f"results.csv has {len(result_rows) - 1} rows")
+    for method, path in trials.items():
+        adapt_dir = os.path.join(os.path.dirname(path), "adapt")
+        series = read_scalars(adapt_dir)
+        with open(path, newline="") as f:
+            trial_rows = list(csv.DictReader(f))
+        updates = {int(r["step"]): float(r["GRADIENT_UPDATES"]) for r in trial_rows
+                   if r.get("GRADIENT_UPDATES")}
+        gu = dict(zip(series["GRADIENT_UPDATES"][0].tolist(),
+                      series["GRADIENT_UPDATES"][1].tolist()))
+        fcs_steps = series["fcs/raw"][0].tolist()
+        scalars_to_csv(adapt_dir, os.path.join(out, f"{method}_scalars.csv"))
+        log(f"[analysis] {method}: event files of adapt/ hold " + ", ".join(
+            f"{t} x{len(v[0])}" for t, v in sorted(series.items()))
+            + f"; GRADIENT_UPDATES {gu}, trials.csv {updates}")
+        if fcs_steps != list(range(SUITE_STEPS)) or not updates or any(
+                gu.get(s) != v for s, v in updates.items()):
+            raise AssertionError(f"{method}: fcs/raw at steps {fcs_steps}, GRADIENT_UPDATES "
+                                 f"{gu} against trials.csv {updates}")
+    gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    p10 = CARRY["driver_gaps"]
+    q = statistics.quantiles(p10, n=4)
+    writer_ms = writes["seconds"] * 1e3 / steps_run
+    log(f"[analysis] event files of the suite: {writes['records']} records, {writes['bytes']} "
+        f"bytes, {writes['bytes'] / steps_run:.1f} bytes and {writer_ms:.4f} ms of the writer's "
+        f"host time an adapt step; median interval between adapt steps in the suite's driver "
+        f"{statistics.median(gaps):.2f} ms (float32, the refinement module); phase 10's run A "
+        f"{statistics.median(p10):.2f} ms, quartiles {q[0]:.2f}-{q[2]:.2f} ms; {card}")
+    if writer_ms > q[2] - q[0]:
+        raise AssertionError(f"the event writer takes {writer_ms:.3f} ms a step, more than "
+                             f"phase 10's interquartile spread {q[2] - q[0]:.3f} ms")
+
+    # (d) The OOD plots of phase 12's FCS.
+    fcs = CARRY["fcs"]
+    plot_fcs_histogram(fcs["training"], fcs["novel"], os.path.join(out, "fcs_hist.pdf"))
+    plot_precision_recall(fcs["training"], fcs["novel"], os.path.join(out, "pr.pdf"))
+    check_pdf(os.path.join(out, "fcs_hist.pdf"), ["feature contrast score", "frequency",
+                                                  "train", "novel"])
+    check_pdf(os.path.join(out, "pr.pdf"), ["recall", "precision"])
+    log(f"[analysis] OOD plots of phase 12's FCS ({len(fcs['training'])} training, "
+        f"{len(fcs['novel'])} novel frames) written; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def expect_launches(label, got, want):
+    """Fail unless the launch counts are exactly `want`."""
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got}, want {want}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3472,6 +3811,9 @@ def main() -> int:
                            bare_ms, driver_ms, driver_root.name)
     # Phase 13: the fleet and data-parallel layer.
     fleet_phase(args.seed, dev, rows, card, pytree_ms, driver_root.name)
+    # Phase 14: cost volumes, profiling, the results pipeline with its event
+    # files, and the OOD plots.
+    analysis_phase(args.seed, dev, rows, card, engines, frames, driver_root.name)
     driver_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches",
             "train11_launches", "pytree_launches", "fleet_launches", "max_abs_err",
