@@ -1,12 +1,13 @@
 """The native host library: PFM read, half-pixel bilinear resize, uint8 ->
 float32 and the point-cloud voxel grid, in C++ through ctypes (counterpart
-of adaptive_stereo_tpu/data/native.py), and CRC-32C for the event files of
-utils/event_file.py.
+of adaptive_stereo_tpu/data/native.py), CRC-32C for the event files of
+utils/event_file.py, and the JPEG codec of data/jpeg.py
+(csrc/jpeg_codec.cpp).
 
-csrc/stereo_native.cpp is built at the first call with the host C++
-compiler ($CXX, else c++; -O3 -fPIC -shared -std=c++17
--ffp-contract=off) into
-adaptive_stereo_tpu_torch/_build/libstereo_native_<hash of source and
+csrc/stereo_native.cpp and csrc/jpeg_codec.cpp are built at the first
+call with the host C++ compiler ($CXX, else c++; -O3 -fPIC -shared
+-std=c++17 -ffp-contract=off) into
+adaptive_stereo_tpu_torch/_build/libstereo_native_<hash of sources and
 flags>.so, as data/png.py builds its C function. Unlike the JAX module,
 which quietly falls back to numpy or cv2 when its library is missing, the
 port builds the library or raises RuntimeError with the command and the
@@ -33,6 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stereo_native.cpp"
+# Every source compiled into the library; its name hashes all of them.
+_SOURCES = (_SOURCE, _SOURCE.with_name("jpeg_codec.cpp"))
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # No fused multiply-adds: the resize's lerps round after the multiply, on
 # every host (the JAX package's Makefile builds with -march=native, where
@@ -41,8 +44,9 @@ _CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 
 
 def library_path() -> Path:
-    """Where the library of the current source and flags is built."""
-    digest = hashlib.sha256(" ".join(_CXXFLAGS).encode() + _SOURCE.read_bytes()).hexdigest()
+    """Where the library of the current sources and flags is built."""
+    digest = hashlib.sha256(" ".join(_CXXFLAGS).encode()
+                            + b"".join(src.read_bytes() for src in _SOURCES)).hexdigest()
     return _BUILD_DIR / f"libstereo_native_{digest[:16]}.so"
 
 
@@ -55,7 +59,7 @@ def build() -> Path:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [os.environ.get("CXX") or "c++", *_CXXFLAGS, "-o", tmp, str(_SOURCE)]
+    cmd = [os.environ.get("CXX") or "c++", *_CXXFLAGS, "-o", tmp, *map(str, _SOURCES)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as err:
@@ -86,6 +90,13 @@ def library() -> ctypes.CDLL:
     lib.voxel_downsample_f32.restype = i64
     lib.crc32c_update.argtypes = [ctypes.c_uint32, ctypes.c_char_p, i64]
     lib.crc32c_update.restype = ctypes.c_uint32
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, u8p, ctypes.POINTER(i64),
+                                ctypes.POINTER(i64), ctypes.c_char_p, i64]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_encode.argtypes = [u8p, i64, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+                                i64]
+    lib.jpeg_encode.restype = i64
     return lib
 
 

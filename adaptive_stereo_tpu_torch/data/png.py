@@ -36,12 +36,12 @@ import numpy as np
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "png_unfilter.c"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _CFLAGS = ("-O2", "-shared", "-fPIC")
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunks(data: bytes):
-    if data[:8] != _SIGNATURE:
+    if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
     while pos + 8 <= len(data):
@@ -155,7 +155,7 @@ def encode_png(img: np.ndarray) -> bytes:
     stream = np.concatenate([kinds.astype(np.uint8)[:, None],
                              rows[kinds, np.arange(h)]], axis=1)
     header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(stream.tobytes())) + _chunk(b"IEND", b""))
 
 

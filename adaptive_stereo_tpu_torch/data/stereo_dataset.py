@@ -10,9 +10,10 @@ Behavioral contract from reference datasets/stereo_dataset.py:13-145:
 - outputs keyed `color_{l,r}/{s}` (H, W, 3) and `gt_disp_{l,r}/{s}` (H, W, 1),
   float32, NHWC, colors in [0, 1].
 
-Counterpart of adaptive_stereo_tpu/data/stereo_dataset.py. The cv2 PNG
-decode is data/png.py; the cv2 INTER_LINEAR resize is a half-pixel
-bilinear resize in numpy (_resize_bilinear). Batches are numpy; a thread
+Counterpart of adaptive_stereo_tpu/data/stereo_dataset.py. The cv2
+decode is data/png.py for PNG and data/jpeg.py for JPEG; the cv2
+INTER_LINEAR resize is a half-pixel bilinear resize in numpy
+(_resize_bilinear). Batches are numpy; a thread
 pool prefetches them ahead of the step, which copies them to the device.
 """
 
@@ -26,7 +27,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .loaders import get_disp_loader
-from .png import read_png
+from .jpeg import decode_jpeg
+from .png import PNG_SIGNATURE, decode_png
 from .splits import default_splits_root, read_lines, split_lines_path
 
 
@@ -71,11 +73,20 @@ def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
 
 
 def _load_rgb(path: str, uint8: bool = False) -> np.ndarray:
-    """Decode an RGB PNG to (H, W, 3): gray is repeated, alpha dropped,
-    16-bit samples keep their high byte (as cv2's 8-bit color read).
-    uint8=True keeps the 8-bit pixels (the engines' images_uint8 frames);
-    else float32 in [0, 1]."""
-    arr = read_png(path)
+    """Decode an RGB PNG or JPEG to (H, W, 3), picking the decoder by the
+    file's first bytes as cv2.imread does: gray is repeated, alpha dropped,
+    16-bit PNG samples keep their high byte (as cv2's 8-bit color read);
+    JPEG is data/jpeg.py, cv2's pixels bit for bit. Any other file raises
+    ValueError naming it. uint8=True keeps the 8-bit pixels (the engines'
+    images_uint8 frames); else float32 in [0, 1]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == PNG_SIGNATURE:
+        arr = decode_png(data)
+    elif data[:2] == b"\xff\xd8":
+        arr = decode_jpeg(data)
+    else:
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
     if arr.dtype == np.uint16:
         arr = (arr >> 8).astype(np.uint8)
     if arr.ndim == 2:

@@ -172,6 +172,29 @@ Phases, in order; any failure raises and the script exits non-zero:
               against the same steps on one rank. Fails unless every fleet
               run launched kernels 1, 2, 3 and 5 and both backward kernels
               and never kernel 4
+ 14. analysis save_cost_volumes, flops and a trace, run_adaptation_suite
+              with its results, plots and event files, the OOD plots
+              (analysis_phase)
+ 15. paper    JPEG frames and the paper protocol's runners
+              (adaptive_stereo_tpu_torch/scripts/, paper_phase): (a) the
+              seeded JPEG_FRAME_SHAPE frame encoded by the port at
+              JPEG_QUALITY 4:2:0 decodes to the pixels whose SHA-256 is
+              JPEG_FRAME_SHA256 (the CPU tests hold the same bytes against
+              cv2); decode_jpeg and read_png of the frame timed on the
+              host; (b) make_readiness_minidata's datasets (PAPER_FRAMES a
+              split at PAPER_FRAME_SHAPE, written by a spawned process while
+              phases 3-14 run) through run_paper_suite over
+              PAPER_ENVIRONMENTS, 4 methods x PAPER_STEPS at 320x960: each
+              method writes trials.csv and launches kernels 1-3 and both
+              backward kernels, never 4 or 5; the interval between adapt
+              steps on JPEG data; every kernel call of one adapt step on
+              those JPEG frames against its plain version
+              (check_kernel_calls); (c) run_paper_scale_synth with
+              SYNTH_FLAGS through phase 4 (pretraining with bench's
+              model): the tower's chains 15 + 31 launches a train step in
+              pretraining and in the bench suite, none in faithful; (d)
+              synthetic_pipeline_demo at its defaults: results.csv and
+              both plots
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
@@ -263,6 +286,37 @@ CV_SHAPE = (320, 1216)
 SUITE_STEPS = 4
 PROFILE_ITERS = {"forward": 20, "step": 10}
 TRACE_KERNELS = ("cost_volume_kernel", "conv3d_layer_kernel", "soft_argmin_fcs_kernel")
+# Phase 15: the paper protocol's runners. The JPEG frame of (a) at KITTI's
+# size, encoded at JPEG_QUALITY 4:2:0 by the port and decoded again, hashes to
+# JPEG_FRAME_SHA256 (tests/test_torch_jpeg.py holds those bytes against cv2);
+# the drill's frames (PAPER_FRAMES a split, at PAPER_FRAME_SHAPE), its
+# environments and steps; the paper-scale run's flags.
+JPEG_FRAME_SHAPE = (375, 1242)
+JPEG_QUALITY = 95
+JPEG_FRAME_SHA256 = "5a47dc24f64049f5a33f5945f1c1fb0dd17b13f037fa4d3d55f911624881da55"
+JPEG_DECODES = 20
+PAPER_FRAME_SHAPE = (375, 1242)
+PAPER_FRAMES = 12
+PAPER_ENVIRONMENTS = ("flying_to_vk01", "clone_to_campus")
+PAPER_STEPS = 8
+SYNTH_FLAGS = ("--configs", "faithful", "bench", "--n_train", "8", "--n_val", "2",
+               "--n_novel", "16", "--pretrain_steps", "10", "--adapt_steps", "8",
+               "--eval_hz", "4")
+
+
+def jpeg_frame(seed: int = 0, shape=JPEG_FRAME_SHAPE) -> np.ndarray:
+    """A seeded (H, W, 3) uint8 frame in integer arithmetic only (so every
+    host and numpy version makes the same bytes): 8x8-pixel random colour
+    cells, box-blurred over 9x9 pixels, plus noise in [-6, 6]."""
+    h, w = shape
+    rng = np.random.RandomState(seed)
+    cells = rng.randint(0, 256, size=(h // 8 + 3, w // 8 + 3, 3)).astype(np.int64)
+    img = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h + 8, :w + 8]
+    c = np.cumsum(np.cumsum(np.pad(img, ((1, 0), (1, 0), (0, 0))), axis=0), axis=1)
+    box = (c[9:, 9:] - c[:-9, 9:] - c[9:, :-9] + c[:-9, :-9])[:h, :w] // 81
+    return np.clip(box + rng.randint(-6, 7, size=(h, w, 3)), 0, 255).astype(np.uint8)
+
+
 # Values a later phase reads: phase 10's intervals between adapt steps,
 # phase 12's FCS of both domains.
 CARRY = {}
@@ -1520,6 +1574,34 @@ def generate_driver_data(root: str, seed: int):
 
 
 
+def wait_timers(waits):
+    """Stand-ins for the streaming driver's _ReplayPrefetch.item and
+    BatchLoader.__iter__ that add the time the loop's thread waits for the
+    replay frame and for the loader's next batch to waits["replay"] and
+    waits["loader"] (seconds)."""
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+
+    replay_item, loader_iter = sd._ReplayPrefetch.item, sd.BatchLoader.__iter__
+
+    def timed_replay_item(self, step):
+        t = time.perf_counter()
+        item = replay_item(self, step)
+        waits["replay"] += time.perf_counter() - t
+        return item
+
+    def timed_loader_iter(self):
+        batches = loader_iter(self)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            waits["loader"] += time.perf_counter() - t
+            yield batch
+    return timed_replay_item, timed_loader_iter
+
+
 def driver_phase(seed, dev, rows, card, bare_ms, root, data):
     """Phase 10: the streaming adaptation driver (adapt --engine flat)."""
     import csv
@@ -1592,23 +1674,7 @@ def driver_phase(seed, dev, rows, card, bare_ms, root, data):
     waits = {"loader": 0.0, "replay": 0.0}
     make_steps, replay_item, loader_iter = (sd.make_flat_streaming_steps,
                                             sd._ReplayPrefetch.item, sd.BatchLoader.__iter__)
-
-    def timed_replay_item(self, step):
-        t = time.perf_counter()
-        item = replay_item(self, step)
-        waits["replay"] += time.perf_counter() - t
-        return item
-
-    def timed_loader_iter(self):
-        batches = loader_iter(self)
-        while True:
-            t = time.perf_counter()
-            try:
-                batch = next(batches)
-            except StopIteration:
-                return
-            waits["loader"] += time.perf_counter() - t
-            yield batch
+    timed_replay_item, timed_loader_iter = wait_timers(waits)
 
     def counted_steps(*a, **kw):
         adapt, done, validate, make_batched = make_steps(*a, **kw)
@@ -2110,6 +2176,24 @@ def kernel_shapes_phase(seed, dev, root):
         f"eval at batch 2: every kernel call within its band, {time.perf_counter() - t0:.1f} s")
 
 
+def launch_counter(wrappers):
+    """(reset, counts) over the kernel wrappers {name: wrapper}: reset sets
+    every launch count (and backward launch count) to 0; counts returns
+    them as {name: launches, "<name> backward": launches}."""
+    def reset():
+        for wr in wrappers.values():
+            wr.launches = 0
+            if hasattr(wr, "backward_launches"):
+                wr.backward_launches = 0
+
+    def counts():
+        got = {name: wr.launches for name, wr in wrappers.items()}
+        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
+                    if hasattr(wr, "backward_launches")})
+        return got
+    return reset, counts
+
+
 def require_launches(label, got, absent):
     """Fail unless every kernel in `got` ({name: launches}) launched but
     those in `absent`, which must not have."""
@@ -2137,17 +2221,7 @@ def classic_phase(seed, dev, rows, card, bare_ms, driver_ms, root):
     logs, novel, train16 = (os.path.join(root, name) for name in ("logs11", "novel", "train16"))
     wrappers = {row["name"]: row["wrapper"] for row in rows}
 
-    def reset():
-        for wr in wrappers.values():
-            wr.launches = 0
-            if hasattr(wr, "backward_launches"):
-                wr.backward_launches = 0
-
-    def counts():
-        got = {name: wr.launches for name, wr in wrappers.items()}
-        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
-                    if hasattr(wr, "backward_launches")})
-        return got
+    reset, counts = launch_counter(wrappers)
 
     def check_launches(label, absent):
         got = counts()
@@ -2379,17 +2453,7 @@ def rest_phase(seed, dev, rows, card, serving, bare_ms, driver_ms, root):
     novel, train, train16 = (os.path.join(root, name) for name in ("novel", "train", "train16"))
     weights = os.path.join(root, "weights")
 
-    def reset():
-        for wr in wrappers.values():
-            wr.launches = 0
-            if hasattr(wr, "backward_launches"):
-                wr.backward_launches = 0
-
-    def counts():
-        got = {name: wr.launches for name, wr in wrappers.items()}
-        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
-                    if hasattr(wr, "backward_launches")})
-        return got
+    reset, counts = launch_counter(wrappers)
 
     def check_launches(label, absent):
         got = counts()
@@ -2877,17 +2941,7 @@ def fleet_phase(seed, dev, rows, card, pytree_ms, root):
     wrappers = {row["name"]: row["wrapper"] for row in rows}
     failed = []
 
-    def reset():
-        for wr in wrappers.values():
-            wr.launches = 0
-            if hasattr(wr, "backward_launches"):
-                wr.backward_launches = 0
-
-    def counts():
-        got = {name: wr.launches for name, wr in wrappers.items()}
-        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
-                    if hasattr(wr, "backward_launches")})
-        return got
+    reset, counts = launch_counter(wrappers)
 
     mesh = make_mesh(device=dev)
     log(f"[fleet] mesh: rank {mesh.rank} of {mesh.world_size}, backend "
@@ -3297,17 +3351,7 @@ def analysis_phase(seed, dev, rows, card, engines, frames, root):
     out = os.path.join(root, "analysis14")
     peak = PEAK_OPS_PER_S["bf16_tensor"]
 
-    def reset():
-        for wr in wrappers.values():
-            wr.launches = 0
-            if hasattr(wr, "backward_launches"):
-                wr.backward_launches = 0
-
-    def counts():
-        got = {name: wr.launches for name, wr in wrappers.items()}
-        got.update({f"{name} backward": wr.backward_launches for name, wr in wrappers.items()
-                    if hasattr(wr, "backward_launches")})
-        return got
+    reset, counts = launch_counter(wrappers)
 
     # (a) Cost volumes: save_cost_volumes on phase 4's default-head model
     # (320x1216, k=4, bf16) over CV_FRAMES synthetic frames, every kernel
@@ -3457,11 +3501,12 @@ def analysis_phase(seed, dev, rows, card, engines, frames, root):
         writes["records"] += 1
         writes["bytes"] += self.bytes_written - before
 
-    starts = []
+    starts, run_firsts = [], []
     make_steps = sd.make_flat_streaming_steps
 
     def timed_steps(*a, **kw):
         adapt_fn, *rest = make_steps(*a, **kw)
+        run_firsts.append(len(starts))
 
         def adapt_t(*args):
             starts.append(time.perf_counter())
@@ -3522,6 +3567,8 @@ def analysis_phase(seed, dev, rows, card, engines, frames, root):
             raise AssertionError(f"{method}: fcs/raw at steps {fcs_steps}, GRADIENT_UPDATES "
                                  f"{gu} against trials.csv {updates}")
     gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    # Phase 15 compares its JPEG-fed suite with these intervals, within runs.
+    CARRY["suite_gaps"] = [g for i, g in enumerate(gaps) if i + 1 not in run_firsts]
     p10 = CARRY["driver_gaps"]
     q = statistics.quantiles(p10, n=4)
     writer_ms = writes["seconds"] * 1e3 / steps_run
@@ -3544,6 +3591,262 @@ def analysis_phase(seed, dev, rows, card, engines, frames, root):
     log(f"[analysis] OOD plots of phase 12's FCS ({len(fcs['training'])} training, "
         f"{len(fcs['novel'])} novel frames) written; phase 14 took "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def generate_paper_data(root: str):
+    """Start writing phase 15's data in two spawned processes: the drill's
+    datasets (make_readiness_minidata, PAPER_FRAMES a split at
+    PAPER_FRAME_SHAPE, the splits of PAPER_ENVIRONMENTS) under root/drill,
+    and phase 0 of run_paper_scale_synth under root/synth. Returns (pool,
+    futures)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from adaptive_stereo_tpu_torch.scripts import make_readiness_minidata, run_paper_scale_synth
+
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    h, w = DRIVER_SHAPE
+    futures = [
+        pool.submit(make_readiness_minidata.make_minidata, os.path.join(root, "drill"),
+                    PAPER_FRAMES, *PAPER_FRAME_SHAPE, PAPER_ENVIRONMENTS),
+        pool.submit(run_paper_scale_synth.main, [
+            "--work", os.path.join(root, "synth"), "--height", str(h), "--width", str(w),
+            *SYNTH_FLAGS, "--through", "0"])]
+    return pool, futures
+
+
+def tower_chains(label, got, steps):
+    """The failure, if any, of a run whose `steps` train-mode steps must
+    each have launched the tower's backward chain (31 launches) once and
+    its forward chain (15) at least once (eval forwards add 8 each)."""
+    fwd, bwd = got["tower_forward"], got["tower_backward"]
+    if bwd != 31 * steps or fwd < 15 * steps:
+        return [f"{label}: tower launches {fwd} / {bwd}, want >= {15 * steps} / {31 * steps}"]
+    return []
+
+
+def paper_phase(seed, dev, rows, card, root):
+    """Phase 15: JPEG frames in the data layer and the paper protocol's
+    runners (adaptive_stereo_tpu_torch/scripts/), with their datasets
+    written under root. The writers start after (a)'s host timings, so
+    that no earlier phase's host-clock times run beside them."""
+    import hashlib
+    import os
+
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+    from adaptive_stereo_tpu_torch.data import (StereoDataset, decode_jpeg, encode_jpeg,
+                                                read_png, write_png)
+    from adaptive_stereo_tpu_torch.engine import (create_train_state, init_fcs_ema,
+                                                  load_variables, make_fused_adapt_step)
+    from adaptive_stereo_tpu_torch.models import StereoModel, state_dicts_from_jax
+    from adaptive_stereo_tpu_torch.scripts import (run_paper_scale_synth, run_paper_suite,
+                                                   synthetic_pipeline_demo)
+
+    t_phase = time.perf_counter()
+    wrappers = {row["name"]: row["wrapper"] for row in rows}
+    dev_name = dev.type
+    h, w = DRIVER_SHAPE
+    failed = []
+
+    reset, counts = launch_counter(wrappers)
+
+    # (a) The JPEG decoder on this host: the seeded KITTI-size frame, encoded
+    # by the port at JPEG_QUALITY 4:2:0, decodes to the pixels whose hash the
+    # CPU tests hold against cv2.
+    frame = jpeg_frame(seed)
+    data_jpeg = encode_jpeg(frame, quality=JPEG_QUALITY, subsampling="4:2:0")
+    decoded = decode_jpeg(data_jpeg)
+    digest = hashlib.sha256(decoded.tobytes()).hexdigest()
+    png_path = os.path.join(root, "frame.png")
+    write_png(png_path, frame)
+    jpeg_ms, png_ms = [], []
+    for _ in range(JPEG_DECODES):
+        t0 = time.perf_counter()
+        decode_jpeg(data_jpeg)
+        jpeg_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        read_png(png_path)
+        png_ms.append((time.perf_counter() - t0) * 1e3)
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean((decoded.astype(np.float64) - frame) ** 2))
+    log(f"[paper] (a) JPEG {JPEG_FRAME_SHAPE[0]}x{JPEG_FRAME_SHAPE[1]} 4:2:0 quality "
+        f"{JPEG_QUALITY}: {len(data_jpeg)} bytes, PSNR {psnr:.2f} dB, decoded sha256 {digest} "
+        f"(want {JPEG_FRAME_SHA256}); host ms a frame, median of {JPEG_DECODES}: decode_jpeg "
+        f"{statistics.median(jpeg_ms):.3f} (min {min(jpeg_ms):.3f}), read_png of the same frame "
+        f"{statistics.median(png_ms):.3f} (min {min(png_ms):.3f}); {card}")
+    if digest != JPEG_FRAME_SHA256:
+        failed.append("(a) the decoded JPEG frame's hash differs from the CPU tests'")
+
+    t0 = time.perf_counter()
+    pool, futures = generate_paper_data(root)
+    for future in futures:
+        if future.result() not in (None, 0):
+            raise AssertionError("phase 15's data writers failed")
+    pool.shutdown()
+    log(f"[paper] datasets written in {time.perf_counter() - t0:.1f} s")
+
+    # (b) The drill at real size: the port's run_paper_suite over the
+    # JPEG splits make_readiness_minidata wrote, each method's launches
+    # counted on its own, the intervals between adapt steps timed and split
+    # as phase 10 splits them (the loader's threads decode the JPEGs).
+    drill = os.path.join(root, "drill")
+    per_run, starts, step_waits, call_ms = {}, [], [], []
+    waits = {"loader": 0.0, "replay": 0.0}
+    adapt_streaming, make_steps = sd.adapt_streaming, sd.make_flat_streaming_steps
+    replay_item, loader_iter = sd._ReplayPrefetch.item, sd.BatchLoader.__iter__
+    timed_replay_item, timed_loader_iter = wait_timers(waits)
+
+    def counted(cfg, *a, **kw):
+        reset()
+        result = adapt_streaming(cfg, *a, **kw)
+        per_run[cfg.model_name] = counts()
+        return result
+
+    def timed_steps(*a, **kw):
+        adapt_fn, *rest = make_steps(*a, **kw)
+        run_starts, run_waits, run_ms = [], [], []
+        starts.append(run_starts)
+        step_waits.append(run_waits)
+        call_ms.append(run_ms)
+
+        def adapt_t(*args):
+            t = time.perf_counter()
+            run_starts.append(t)
+            run_waits.append(dict(waits))
+            waits.update(loader=0.0, replay=0.0)
+            out = adapt_fn(*args)
+            run_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        return (adapt_t, *rest)
+
+    argv = ["--sceneflow", os.path.join(drill, "sceneflow"),
+            "--vkitti", os.path.join(drill, "vkitti"),
+            "--kitti_raw", os.path.join(drill, "kitti_raw"),
+            "--sf_weights", os.path.join(drill, "weights", "sf"),
+            "--vk_weights", os.path.join(drill, "weights", "vk"),
+            "--environments", *PAPER_ENVIRONMENTS, "--num_steps", str(PAPER_STEPS),
+            "--height", str(h), "--width", str(w), "--eval_hz", "4", "--ovs_validate_hz", "2",
+            "--log_dir", os.path.join(drill, "logs"), "--device", dev_name]
+    t0 = time.perf_counter()
+    sd.adapt_streaming, sd.make_flat_streaming_steps = counted, timed_steps
+    sd._ReplayPrefetch.item, sd.BatchLoader.__iter__ = timed_replay_item, timed_loader_iter
+    try:
+        rc = run_paper_suite.main(argv)
+    finally:
+        sd.adapt_streaming, sd.make_flat_streaming_steps = adapt_streaming, make_steps
+        sd._ReplayPrefetch.item, sd.BatchLoader.__iter__ = replay_item, loader_iter
+    suite_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run_paper_suite exited {rc}")
+    for name, got in per_run.items():
+        log(f"[paper] (b) {name}: launches " + ", ".join(f"{n}={c}" for n, c in got.items()))
+        require_launches(f"drill {name}", got, absent=("coarse_head", "tower_forward",
+                                                       "tower_backward"))
+    methods = ("nonstop", "vs", "er", "vs+er")
+    for env in PAPER_ENVIRONMENTS:
+        for method in methods:
+            path = os.path.join(drill, "logs", env, f"adapt_{env}_{method}", "trials.csv")
+            if not os.path.exists(path) or f"adapt_{env}_{method}" not in per_run:
+                failed.append(f"(b) {env} {method}: no trials.csv or no run")
+    gaps = [(b - a) * 1e3 for run in starts for a, b in zip(run, run[1:])]
+    parts = {"adapt call": [t for run in call_ms for t in run[:-1]],
+             "loader wait": [p["loader"] * 1e3 for run in step_waits for p in run[1:]],
+             "replay frame wait": [p["replay"] * 1e3 for run in step_waits for p in run[1:]]}
+    parts["rest"] = [g - sum(v[i] for v in parts.values()) for i, g in enumerate(gaps)]
+    p14 = CARRY["suite_gaps"]
+    log(f"[paper] (b) run_paper_suite over {', '.join(PAPER_ENVIRONMENTS)} ({len(methods)} "
+        f"methods x {PAPER_STEPS} steps, {h}x{w}, JPEG frames of {PAPER_FRAME_SHAPE[0]}x"
+        f"{PAPER_FRAME_SHAPE[1]}): {suite_s:.1f} s; median interval between adapt steps on "
+        f"JPEG data {statistics.median(gaps):.2f} ms over {len(gaps)} intervals beside phase "
+        f"14's suite on PNG data {statistics.median(p14):.2f} ms over {len(p14)} (both float32, "
+        f"the refinement module, {h}x{w}); {card}")
+    log("[paper] (b) the interval between adapt steps on the loop's thread, median ms: "
+        + ", ".join(f"{name} {statistics.median(v):.2f}" for name, v in parts.items())
+        + "; largest loader wait " + f"{max(parts['loader wait']):.2f}, largest replay frame "
+        f"wait {max(parts['replay frame wait']):.2f}")
+
+    # One adapt step of each environment's configuration on the JPEG-loaded
+    # frames (stream and replay), every kernel call against its plain version.
+    variables = load_variables(os.path.join(drill, "weights", "sf"))
+    pairs = (("VirtualKitti", "vkitti", "virtual_kitti_01_adapt", "SceneFlowFlying",
+              "sceneflow", "sceneflow_flying_er_1000"),
+             ("KittiRaw", "kitti_raw", "kitti_raw_campus_adapt", "VirtualKitti", "vkitti",
+              "virtual_kitti_clone_er_1000"))
+
+    def batch(name, sub, split, subsplit):
+        ds = StereoDataset(os.path.join(drill, sub), name, split, h, w, subsplit, scales=[0, 4],
+                           load_disp_left=True, load_disp_right=False)
+        return {key: torch.from_numpy(v[None]).to(dev) for key, v in ds[0].items()}
+
+    for name, sub, split, rname, rsub, rsplit in pairs:
+        model = StereoModel(k=4, device=dev)
+        model.load_state_dicts(*state_dicts_from_jax(variables, 4))
+        step = make_fused_adapt_step(model, 0, 4, use_er=True, use_vs=True, ood_threshold=1e9,
+                                     clip_grad_norm=True)
+        calls = {}
+        with captured_kernel_calls(calls):
+            step(create_train_state(model, None, LR), init_fcs_ema(dev),
+                 batch(name, sub, split, "train"), batch(rname, rsub, rsplit, "val"), True)
+        failed += check_kernel_calls(calls, f"paper {name} step", forwards=2, tower=False,
+                                     backward=True)
+
+    # (c) run_paper_scale_synth through its entry point, three times, the
+    # launches counted after each: pretraining (faithful's model, as JAX),
+    # then the faithful suite with the OOD analysis, then the bench suite.
+    # Each call skips the phases whose outputs exist.
+    synth = os.path.join(root, "synth")
+    flags = ["--work", synth, "--height", str(h), "--width", str(w), *SYNTH_FLAGS,
+             "--device", dev_name]
+    a = run_paper_scale_synth.parse_args(flags)
+    t0 = time.perf_counter()
+    launches = {}
+    for label, extra in (("pretraining", ["--through", "1"]),
+                         ("faithful", ["--configs", "faithful"]),
+                         ("bench", ["--configs", "bench"])):
+        reset()
+        if run_paper_scale_synth.main(flags + extra) != 0:
+            failed.append(f"(c) run_paper_scale_synth {' '.join(extra)} failed")
+        launches[label] = counts()
+        log(f"[paper] (c) {label}: launches " + ", ".join(
+            f"{n}={c}" for n, c in launches[label].items()))
+    synth_s = time.perf_counter() - t0
+    tower = ("tower_forward", "tower_backward")
+    require_launches("paper-scale pretraining", launches["pretraining"],
+                     absent=("coarse_head", *tower))
+    require_launches("paper-scale faithful", launches["faithful"], absent=("coarse_head", *tower))
+    require_launches("paper-scale bench", launches["bench"], absent=("coarse_head",))
+    failed += tower_chains("(c) bench suite", launches["bench"],
+                           a.adapt_steps * len(a.methods))
+    with open(os.path.join(a.artifacts, "ood_threshold.json")) as f:
+        ood = json.load(f)
+    log(f"[paper] (c) run_paper_scale_synth {' '.join(SYNTH_FLAGS)} at {h}x{w}: {synth_s:.1f} s; "
+        f"threshold {ood['threshold']:.4f} ({ood['threshold_source']}-derived, "
+        f"P={ood['precision_at_threshold']:.3f} R={ood['recall_at_threshold']:.3f})")
+    for cname in a.configs:
+        wanted = [f"results_{cname}.csv"] + [f"adapt_{cname}_{m}_summary.json" for m in a.methods]
+        missing = [f for f in wanted if not os.path.exists(os.path.join(a.artifacts, f))]
+        if missing:
+            failed.append(f"(c) {cname}: missing {missing}")
+    if not os.path.exists(os.path.join(a.artifacts, "pretrain_metrics.json")):
+        failed.append("(c) pretraining wrote no pretrain_metrics.json")
+    check_pdf(os.path.join(a.artifacts, "fcs_histogram.pdf"), ["feature contrast score"])
+
+    # (d) The demo at its defaults.
+    demo = os.path.join(root, "demo")
+    t0 = time.perf_counter()
+    reset()
+    rc = synthetic_pipeline_demo.main(["--work", demo, "--device", dev_name])
+    got = counts()
+    log(f"[paper] (d) synthetic_pipeline_demo: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+        "launches " + ", ".join(f"{n}={c}" for n, c in got.items()))
+    require_launches("demo", got, absent=("coarse_head", "tower_forward", "tower_backward"))
+    if rc != 0 or not os.path.exists(os.path.join(demo, "results.csv")):
+        failed.append("(d) the demo wrote no results.csv")
+    check_pdf(os.path.join(demo, "adaptation_curves.pdf"), ["ADAPT domain", "TRAIN domain"])
+    check_pdf(os.path.join(demo, "gradient_updates.pdf"), ["gradient updates @ 16 steps"])
+    log(f"[paper] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
 
 
 def expect_launches(label, got, want):
@@ -3815,6 +4118,10 @@ def main() -> int:
     # files, and the OOD plots.
     analysis_phase(args.seed, dev, rows, card, engines, frames, driver_root.name)
     driver_root.cleanup()
+    # Phase 15: JPEG frames and the paper protocol's runners.
+    paper_root = tempfile.TemporaryDirectory(prefix="chip_smoke_paper_")
+    paper_phase(args.seed, dev, rows, card, paper_root.name)
+    paper_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches",
             "train11_launches", "pytree_launches", "fleet_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms", "backward_ms",
