@@ -1,5 +1,6 @@
-// Baseline JPEG decode and encode for the port's data layer, part of the
-// native host library (built with stereo_native.cpp by data/native.py).
+// JPEG decode (sequential and progressive) and baseline encode for the
+// port's data layer, part of the native host library (built with
+// stereo_native.cpp by data/native.py).
 //
 // The JAX package reads frames with cv2.imread(path, IMREAD_COLOR), which
 // decodes with libjpeg-turbo's defaults: the accurate integer IDCT
@@ -7,12 +8,24 @@
 // (jdsample.c) and the fixed-point YCbCr -> RGB tables (jdcolor.c). This
 // decoder repeats that arithmetic, so it gives cv2's pixels bit for bit.
 //
-// Decoded: sequential Huffman JPEGs of 8-bit samples (SOF0, SOF1), with 1
-// (gray) or 3 (YCbCr) components, sampling factors 1-4, 8- or 16-bit
-// quantization tables, Huffman tables defined per scan, restart intervals,
-// interleaved or one-component scans, and any image size. Everything else
-// (progressive, lossless, hierarchical, arithmetic coding, 12-bit samples,
-// 4 components, Adobe RGB) is refused with a message naming it.
+// Decoded: Huffman JPEGs of 8-bit samples, sequential (SOF0, SOF1) or
+// progressive (SOF2), with 1 (gray) or 3 (YCbCr) components, sampling
+// factors 1-4, 8- or 16-bit quantization tables, Huffman tables defined
+// per scan, restart intervals, interleaved or one-component scans, and any
+// image size. Every scan decodes into one coefficient buffer of the whole
+// frame (jdcoefct.c's full-image buffer); the IDCT, upsampling and colour
+// conversion run over it once the file ends. A progressive file's four
+// scan kinds follow jdphuff.c: DC first (the difference shifted left by
+// Al), DC refine (one bit a block), AC first (one component, EOBRUN across
+// blocks) and AC refine (correction bits for coefficients already nonzero;
+// zero runs count only coefficients still zero). libjpeg's block smoothing
+// (jdcoefct.c decompress_smooth_data, on by default) changes pixels when
+// the scans leave one of the first nine AC coefficients (zigzag 1-9) of a
+// component short of full precision; this decoder does not repeat it and
+// refuses such files, as it refuses a progressive scan whose data ends
+// early. Everything else (lossless, hierarchical, arithmetic coding,
+// 12-bit samples, 4 components, Adobe RGB) is refused with a message
+// naming it.
 //
 // Encoded: baseline JFIF of RGB images (4:4:4, 4:2:2 or 4:2:0) with the
 // Annex K tables scaled by the quality as
@@ -120,6 +133,7 @@ struct BitReader {
   const uint8_t* end;
   uint64_t buf = 0;
   int cnt = 0;
+  int pad = 0;  // zero bits appended past the data, at the end of buf
   bool at_marker = false;
 
   BitReader(const uint8_t* begin, const uint8_t* stop) : p(begin), end(stop) {}
@@ -127,16 +141,20 @@ struct BitReader {
   void fill() {
     while (cnt <= 56) {
       uint64_t b = 0;
+      bool real = false;
       if (!at_marker && p < end) {
         if (*p != 0xFF) {
           b = *p++;
+          real = true;
         } else if (p + 1 < end && p[1] == 0x00) {
           b = 0xFF;
           p += 2;
+          real = true;
         } else {
           at_marker = true;  // zeros from here on, as libjpeg inserts
         }
       }
+      if (!real) pad += 8;
       buf |= b << (56 - cnt);
       cnt += 8;
     }
@@ -174,11 +192,15 @@ struct BitReader {
     fail("corrupt JPEG: bad Huffman code");
   }
 
+  // Whether the decode used bits past the end of the segment's data.
+  bool overran() const { return pad > cnt; }
+
   // Drop the bits left in the byte-aligned segment and step over the
   // restart marker RSTn (fill bytes 0xFF before it allowed).
   void restart(int n) {
     buf = 0;
     cnt = 0;
+    pad = 0;
     at_marker = false;
     while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF)) p++;
     if (p + 1 >= end || p[1] != 0xD0 + n) fail("corrupt JPEG: missing restart marker");
@@ -330,6 +352,7 @@ struct Component {
   bool seen = false;
   uint16_t q[64];
   std::vector<int16_t> coef;
+  int bits[64];  // progressive: the Al each coefficient was last coded at, -1 never
 };
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -343,7 +366,7 @@ struct Decoder {
   HuffTable dc[4], ac[4];
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool frame = false, jfif = false;
+  bool frame = false, jfif = false, progressive = false;
   int adobe_transform = -1;
   int scans = 0;
   std::vector<Component> comps;
@@ -388,6 +411,7 @@ struct Decoder {
     if (width <= 0 || height <= 0) fail("unsupported JPEG: image size 0 (DNL)");
     comps.resize(nc);
     for (auto& c : comps) {
+      std::fill(c.bits, c.bits + 64, -1);
       c.id = byte();
       int hv = byte();
       c.h = hv >> 4;
@@ -480,6 +504,123 @@ struct Decoder {
     }
   }
 
+  // Progressive scans (jdphuff.c decode_mcu_DC_first, _DC_refine,
+  // _AC_first, _AC_refine).
+  static void dc_first(BitReader& br, const HuffTable& t, int al, int& pred, int16_t* blk) {
+    int s = br.decode(t);
+    if (s) {
+      if (s > 16) fail("corrupt JPEG: bad DC coefficient");
+      s = extend(br.get(s), s);
+    }
+    pred += s;
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred) << al);
+  }
+
+  static void ac_first(BitReader& br, const HuffTable& t, int ss, int se, int al, int& eobrun,
+                       int16_t* blk) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      const int rs = br.decode(t), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] =
+            static_cast<int16_t>(static_cast<uint32_t>(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + br.get(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for the nonzero coefficient c: 1 adds p1 to its
+  // magnitude, unless that bit is set already.
+  static void refine(BitReader& br, int16_t& c, int p1) {
+    if (br.get(1) && (c & p1) == 0) c = static_cast<int16_t>(c >= 0 ? c + p1 : c - p1);
+  }
+
+  static void ac_refine(BitReader& br, const HuffTable& t, int ss, int se, int al, int& eobrun,
+                        int16_t* blk) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        const int rs = br.decode(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : -p1;  // a newly nonzero coefficient: its sign
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;  // the rest of the block as an EOB run
+        }
+        // Step over the nonzero coefficients (each takes a correction bit)
+        // and r zero ones; a new coefficient goes to the zero after them.
+        do {
+          int16_t& c = blk[kNatural[k]];
+          if (c != 0) {
+            refine(br, c, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t& c = blk[kNatural[k]];
+        if (c != 0) refine(br, c, p1);
+      }
+      eobrun--;
+    }
+  }
+
+  // Every block of a scan over the components idx, in the scan's order:
+  // one component's ceil(dw / 8) x ceil(dh / 8) blocks, or the MCUs of an
+  // interleaved scan. block(i, coefficients) decodes one block of the i-th
+  // scan component; restart() runs at each restart marker, before the
+  // reader steps over it.
+  template <typename Block, typename Restart>
+  void scan_blocks(BitReader& br, const std::vector<int>& idx, Block&& block,
+                   Restart&& restart) {
+    int restarts = 0;
+    if (idx.size() == 1) {
+      Component& c = comps[idx[0]];
+      int bx = ceil_div(c.dw, 8), by = ceil_div(c.dh, 8);
+      long total = static_cast<long>(bx) * by;
+      for (long m = 0; m < total; m++) {
+        if (restart_interval && m && m % restart_interval == 0) {
+          restart();
+          br.restart(restarts++ & 7);
+        }
+        int y = static_cast<int>(m / bx), x = static_cast<int>(m % bx);
+        block(0, &c.coef[(static_cast<size_t>(y) * c.bw + x) * 64]);
+      }
+      return;
+    }
+    long total = static_cast<long>(mcux) * mcuy;
+    for (long m = 0; m < total; m++) {
+      if (restart_interval && m && m % restart_interval == 0) {
+        restart();
+        br.restart(restarts++ & 7);
+      }
+      int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
+      for (size_t i = 0; i < idx.size(); i++) {
+        Component& c = comps[idx[i]];
+        for (int v = 0; v < c.v; v++)
+          for (int h = 0; h < c.h; h++) {
+            size_t b = static_cast<size_t>(my * c.v + v) * c.bw + mx * c.h + h;
+            block(static_cast<int>(i), &c.coef[b * 64]);
+          }
+      }
+    }
+  }
+
   void read_sos() {
     if (!frame) fail("corrupt JPEG: SOS before SOF");
     size_t end = segment_end();
@@ -497,12 +638,19 @@ struct Decoder {
       if (td[i] > 3 || ta[i] > 3) fail("corrupt JPEG: bad SOS");
     }
     int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0)
+    const int ah = ahal >> 4, al = ahal & 15;
+    if (!progressive && (ss != 0 || se != 63 || ahal != 0))
       fail("corrupt JPEG: spectral selection in a sequential scan");
+    const bool dc_band = ss == 0;
+    if (progressive && ((dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+                        (ah != 0 && al != ah - 1) || al > 13))
+      fail("corrupt JPEG: bad progressive scan parameters");
     pos = end;
     for (int i = 0; i < ns; i++) {
       Component& c = comps[idx[i]];
-      if (!dc[td[i]].defined || !ac[ta[i]].defined)
+      const bool need_dc = !progressive || (dc_band && ah == 0);
+      const bool need_ac = !progressive || !dc_band;
+      if ((need_dc && !dc[td[i]].defined) || (need_ac && !ac[ta[i]].defined))
         fail("corrupt JPEG: Huffman table not defined");
       if (!c.seen) {
         if (!qt_defined[c.tq])
@@ -511,41 +659,39 @@ struct Decoder {
         c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
         c.seen = true;
       }
+      if (progressive)
+        for (int k = ss; k <= se; k++) c.bits[k] = al;
     }
     std::vector<int> pred(ns, 0);
+    int eobrun = 0;
     BitReader br(data + pos, data + n);
-    int restarts = 0;
-    if (ns == 1) {
-      Component& c = comps[idx[0]];
-      int bx = ceil_div(c.dw, 8), by = ceil_div(c.dh, 8);
-      long total = static_cast<long>(bx) * by;
-      for (long m = 0; m < total; m++) {
-        if (restart_interval && m && m % restart_interval == 0) {
-          br.restart(restarts++ & 7);
-          pred[0] = 0;
-        }
-        int y = static_cast<int>(m / bx), x = static_cast<int>(m % bx);
-        decode_block(br, dc[td[0]], ac[ta[0]], pred[0],
-                     &c.coef[(static_cast<size_t>(y) * c.bw + x) * 64]);
-      }
+    auto reset = [&] {
+      if (progressive && br.overran()) fail("corrupt JPEG: progressive scan data ends early");
+      std::fill(pred.begin(), pred.end(), 0);
+      eobrun = 0;
+    };
+    if (!progressive) {
+      scan_blocks(br, idx, [&](int i, int16_t* blk) {
+        decode_block(br, dc[td[i]], ac[ta[i]], pred[i], blk);
+      }, reset);
+    } else if (dc_band && ah == 0) {
+      scan_blocks(br, idx, [&](int i, int16_t* blk) {
+        dc_first(br, dc[td[i]], al, pred[i], blk);
+      }, reset);
+    } else if (dc_band) {
+      scan_blocks(br, idx, [&](int, int16_t* blk) {
+        if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      }, reset);
+    } else if (ah == 0) {
+      scan_blocks(br, idx, [&](int, int16_t* blk) {
+        ac_first(br, ac[ta[0]], ss, se, al, eobrun, blk);
+      }, reset);
     } else {
-      long total = static_cast<long>(mcux) * mcuy;
-      for (long m = 0; m < total; m++) {
-        if (restart_interval && m && m % restart_interval == 0) {
-          br.restart(restarts++ & 7);
-          std::fill(pred.begin(), pred.end(), 0);
-        }
-        int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
-        for (int i = 0; i < ns; i++) {
-          Component& c = comps[idx[i]];
-          for (int v = 0; v < c.v; v++)
-            for (int h = 0; h < c.h; h++) {
-              size_t b = static_cast<size_t>(my * c.v + v) * c.bw + mx * c.h + h;
-              decode_block(br, dc[td[i]], ac[ta[i]], pred[i], &c.coef[b * 64]);
-            }
-        }
-      }
+      scan_blocks(br, idx, [&](int, int16_t* blk) {
+        ac_refine(br, ac[ta[0]], ss, se, al, eobrun, blk);
+      }, reset);
     }
+    if (progressive && br.overran()) fail("corrupt JPEG: progressive scan data ends early");
     pos = static_cast<size_t>(br.p - data);
     scans++;
   }
@@ -558,12 +704,12 @@ struct Decoder {
       int m = next_marker();
       if (m < 0 || m == 0xD9) break;
       switch (m) {
-        case 0xC0: case 0xC1:
+        case 0xC0: case 0xC1: case 0xC2:
           if (frame) fail("corrupt JPEG: two frames");
+          progressive = m == 0xC2;
           read_sof(m);
           if (header_only) return;
           break;
-        case 0xC2: fail("unsupported JPEG: progressive (SOF2)");
         case 0xC3: fail("unsupported JPEG: lossless (SOF3)");
         case 0xC5: case 0xC6: case 0xC7:
           fail("unsupported JPEG: hierarchical (SOF" + std::to_string(m - 0xC0) + ")");
@@ -600,6 +746,13 @@ struct Decoder {
     }
     for (auto& c : comps)
       if (!c.seen) fail("corrupt JPEG: a component has no scan");
+    if (progressive)
+      for (size_t i = 0; i < comps.size(); i++)
+        for (int k = 1; k < 10; k++)
+          if (comps[i].bits[k] != 0)
+            fail("unsupported JPEG: the progressive scans leave AC coefficient " +
+                 std::to_string(k) + " of component " + std::to_string(i) +
+                 " short of full precision, where libjpeg smooths the blocks");
   }
 
   // Dequantize, inverse DCT and upsample component `c` to (height, width).

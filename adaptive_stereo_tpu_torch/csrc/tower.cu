@@ -25,9 +25,11 @@
 // four launches a layer:
 //   stereo_tower_grad_y   gl = gx_{p+1} * leaky'(y_p*nrm + shift),
 //                         gy = nrm * (gl - m1 - xhat * m2) (the exact
-//                         batch-statistics BN gradient), rounded to T; for
-//                         p = 7 gy is the tower's output gradient and this
-//                         launch is skipped
+//                         batch-statistics BN gradient; in eval mode the
+//                         wrapper passes m1 = m2 = 0, which leaves nrm * gl,
+//                         the gradient of the running statistics' affine
+//                         map), rounded to T; for p = 7 gy is the tower's
+//                         output gradient and this launch is skipped
 //   stereo_tower_wgrad    per-block partial dW[tap][ci][co] = sum x_p * gy
 //                         and db[co] = sum gy, one row per block
 //   stereo_tower_conv     (epilogue kInputGrad) gx_p by the transposed conv

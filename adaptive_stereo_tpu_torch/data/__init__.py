@@ -1,8 +1,10 @@
 """Data layer (counterpart of adaptive_stereo_tpu/data/): split-file
 datasets, image and disparity IO (PNG through data/png.py, JPEG through
-data/jpeg.py), the threaded batch loader, the synthetic dataset generator
-and the native host library (data/native.py)."""
+data/jpeg.py, the EXIF orientation through data/exif.py), the threaded
+batch loader, the synthetic dataset generator and the native host library
+(data/native.py)."""
 
+from .exif import apply_orientation, exif_orientation
 from .io import read_flo, read_float3, read_pfm, write_flo, write_float3, write_pfm
 from .native import (pfm_read_native, resize_bilinear_native, u8_to_f32_native,
                      voxel_downsample_native)
@@ -17,10 +19,12 @@ __all__ = [
     "BatchLoader",
     "DATASET_BASELINES_M",
     "StereoDataset",
+    "apply_orientation",
     "decode_jpeg",
     "decode_png",
     "encode_jpeg",
     "encode_png",
+    "exif_orientation",
     "generate_synthetic_dataset",
     "get_disp_loader",
     "get_intrinsics_normalized",

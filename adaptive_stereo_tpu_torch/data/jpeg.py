@@ -5,11 +5,15 @@ The JAX package reads JPEG frames with cv2.imread(path, IMREAD_COLOR)
 (adaptive_stereo_tpu/data/stereo_dataset.py _load_rgb) and writes them
 with imageio; the port may import neither. The decoder repeats
 libjpeg-turbo's default decode (accurate integer IDCT, fancy upsampling,
-fixed-point YCbCr -> RGB), so its pixels equal cv2's. It reads sequential
-Huffman JPEGs of 8-bit samples (SOF0 / SOF1), gray or YCbCr, with any
-sampling factors, restart intervals and optimized Huffman tables, and
-raises ValueError on anything else (progressive, lossless, arithmetic
-coding, 12-bit samples, CMYK, Adobe RGB); nothing falls back.
+fixed-point YCbCr -> RGB), so its pixels equal cv2's. It reads Huffman
+JPEGs of 8-bit samples, sequential (SOF0 / SOF1) or progressive (SOF2),
+gray or YCbCr, with any sampling factors, restart intervals and optimized
+Huffman tables, and raises ValueError on anything else (lossless,
+arithmetic coding, 12-bit samples, CMYK, Adobe RGB) and on progressive
+files whose data ends early or whose scans stop before the first nine AC
+coefficients of every component are at full precision (libjpeg smooths
+the blocks of those; the decoder does not repeat it); nothing falls back.
+The decode is raw: the EXIF orientation is data/exif.py's.
 
 The encoder writes baseline JFIF of RGB frames: libjpeg's quality-scaled
 Annex K tables, the accurate integer FDCT and the standard Huffman tables.

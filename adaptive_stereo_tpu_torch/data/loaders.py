@@ -12,6 +12,11 @@ and datasets/stereo_dataset.py:147-184:
 - VirtualKitti: 16-bit depth PNG in centimeters -> disparity = b*f/z
   (b = 0.532725 m, f = 725.0087 px).
 
+The JAX loaders read VKITTI depth with cv2.imread, which applies the EXIF
+Orientation tag, and KITTI disparity with imageio, which does not; so
+load_disp_vkitti applies it (data/exif.py) and load_disp_kitti_stereo
+does not.
+
 All loaders return float32 (H, W, 1) numpy arrays (NHWC channel-last).
 """
 
@@ -19,8 +24,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from .exif import apply_orientation, exif_orientation
 from .native import pfm_read_native
-from .png import read_png
+from .png import decode_png, read_png
 
 
 def load_disp_sceneflow(path: str) -> np.ndarray:
@@ -44,7 +50,9 @@ VKITTI_FOCAL_PX = 725.0087
 
 def load_disp_vkitti(path: str) -> np.ndarray:
     """VKITTI stores depth (cm) as 16-bit PNG; convert to disparity."""
-    depth_m = 0.01 * read_png(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    depth_m = 0.01 * apply_orientation(decode_png(data), exif_orientation(data))
     return (VKITTI_BASELINE_M * VKITTI_FOCAL_PX / depth_m).astype(np.float32)[..., None]
 
 

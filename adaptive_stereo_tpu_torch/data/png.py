@@ -41,13 +41,15 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunks(data: bytes):
+    """(kind, body, crc) of each chunk up to IEND; crc is the 4 bytes the
+    file stores (short where the file ends early)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
     while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
-        yield kind, data[pos + 8:pos + 8 + n]
+        yield kind, data[pos + 8:pos + 8 + n], data[pos + 8 + n:pos + 12 + n]
         pos += 12 + n
         if kind == b"IEND":
             return
@@ -86,7 +88,7 @@ def _unfilter_library() -> ctypes.CDLL:
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W) for gray or (H, W, C) array, uint8 or uint16."""
     header, idat = None, []
-    for kind, body in _chunks(data):
+    for kind, body, _ in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":

@@ -26,8 +26,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .loaders import get_disp_loader
+from .exif import apply_orientation, exif_orientation
 from .jpeg import decode_jpeg
+from .loaders import get_disp_loader
 from .png import PNG_SIGNATURE, decode_png
 from .splits import default_splits_root, read_lines, split_lines_path
 
@@ -76,7 +77,8 @@ def _load_rgb(path: str, uint8: bool = False) -> np.ndarray:
     """Decode an RGB PNG or JPEG to (H, W, 3), picking the decoder by the
     file's first bytes as cv2.imread does: gray is repeated, alpha dropped,
     16-bit PNG samples keep their high byte (as cv2's 8-bit color read);
-    JPEG is data/jpeg.py, cv2's pixels bit for bit. Any other file raises
+    JPEG is data/jpeg.py, cv2's pixels bit for bit; the EXIF Orientation
+    tag is applied as cv2 applies it (data/exif.py). Any other file raises
     ValueError naming it. uint8=True keeps the 8-bit pixels (the engines'
     images_uint8 frames); else float32 in [0, 1]."""
     with open(path, "rb") as f:
@@ -91,7 +93,7 @@ def _load_rgb(path: str, uint8: bool = False) -> np.ndarray:
         arr = (arr >> 8).astype(np.uint8)
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
-    rgb = np.ascontiguousarray(arr[..., :3])
+    rgb = apply_orientation(arr[..., :3], exif_orientation(data))
     return rgb if uint8 else rgb.astype(np.float32) / 255.0
 
 

@@ -27,8 +27,8 @@ runs in the compute dtype (f32 accumulation, rounded) and adds the bias
 there; the BN epilogue is f32 from f32 statistics; the activation is
 rounded to the compute dtype and then added to the residual. tower_cuda
 runs the chain through csrc/tower.cu on CUDA tensors (a
-torch.autograd.Function whose backward is the kernels' backward chain), and
-takes tower_ref for CPU tensors only. The kernels round as the TPU kernel
+torch.autograd.Function whose backward is the kernels' backward chain, in
+train and in eval mode), and takes tower_ref for CPU tensors only. The kernels round as the TPU kernel
 does: the bias is added before the conv output is rounded, and the residual
 add before the activation is rounded. In bfloat16 the convs with 32 input
 channels and every weight gradient run on the tensor cores. Launches are counted per chain:
@@ -238,14 +238,19 @@ tower_forward_cuda.launches = 0
 def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Tensor],
                         ys: List[torch.Tensor], kernels: List[torch.Tensor],
                         gammas: torch.Tensor, betas: torch.Tensor, mu: torch.Tensor,
-                        var: torch.Tensor, eps: float = 1e-5):
-    """The backward chain through csrc/tower.cu, train mode (batch
-    statistics), layer 7 down to 0. Per layer: the BN backward to gy (layers
-    0-6; layer 7's gy is g_y7), the weight and bias gradients (per-block
-    rows), the input gradient (with per-tile S1/S2 sums for the layer below)
-    and one launch that reduces all those rows: at most 4 launches a layer,
-    31 a chain. Returns (dx0, dW list (in x0's dtype), db list, dgamma (7,
-    32), dbeta (7, 32))."""
+                        var: torch.Tensor, eps: float = 1e-5, train: bool = True):
+    """The backward chain through csrc/tower.cu, layer 7 down to 0. Per
+    layer: the BN backward to gy (layers 0-6; layer 7's gy is g_y7), the
+    weight and bias gradients (per-block rows), the input gradient (with
+    per-tile S1/S2 sums for the layer below) and one launch that reduces
+    all those rows: at most 4 launches a layer, 31 a chain. mu and var are
+    the statistics the forward normalised with: the batch statistics in
+    train mode, the running statistics in eval mode (train=False), where
+    BatchNorm is a per-channel affine map, gy = nrm * gl with no batch-mean
+    terms (grad_y gets m1 = m2 = 0, which makes its formula that exactly),
+    and S1, S2 over the running-statistics xhat are dbeta and dgamma as
+    they are in train mode. Returns (dx0, dW list (in x0's dtype), db list,
+    dgamma (7, 32), dbeta (7, 32))."""
     b, h, w, _ = x0.shape
     cdtype, dev = x0.dtype, x0.device
     dcode = _build.DTYPE_CODES[cdtype]
@@ -266,6 +271,7 @@ def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Ten
     gx_next = g_y7.to(cdtype).contiguous()
     _build.require_cuda(gx_next, "g_y7", shape=(b, h, w, 1))
     s1 = s2 = None
+    no_batch_terms = None if train else torch.zeros(CHANNELS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = _build.stream_of(x0)
         for p in range(NUM_LAYERS - 1, -1, -1):
@@ -273,7 +279,10 @@ def tower_backward_cuda(g_y7: torch.Tensor, x0: torch.Tensor, xs: List[torch.Ten
             d = DILATIONS[p]
             x_p = x0 if p == 0 else xs[p - 1]
             if p < NUM_LAYERS - 1:
-                m1, m2 = (s1 / count).contiguous(), (s2 / count).contiguous()
+                if train:
+                    m1, m2 = (s1 / count).contiguous(), (s2 / count).contiguous()
+                else:
+                    m1 = m2 = no_batch_terms
                 dgammas[p], dbetas[p] = s2, s1
                 gy = torch.empty((b, h, w, cout), dtype=cdtype, device=dev)
                 vecs = (mu[p], inv[p], nrm[p], shift[p], m1, m2)
@@ -340,14 +349,13 @@ class _Tower(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y7, _g_mu, _g_var):
-        if not ctx.train:
-            raise NotImplementedError("the tower's backward needs train=True")
         x0, gammas, betas, mu, var, *rest = ctx.saved_tensors
         kernels = rest[:NUM_LAYERS]
         xs = rest[NUM_LAYERS:NUM_LAYERS + NUM_BN]
         ys = rest[NUM_LAYERS + NUM_BN:]
         dx0, dws, dbs, dgamma, dbeta = tower_backward_cuda(
-            g_y7, x0, list(xs), list(ys), list(kernels), gammas, betas, mu, var, ctx.eps)
+            g_y7, x0, list(xs), list(ys), list(kernels), gammas, betas, mu, var, ctx.eps,
+            train=ctx.train)
         # The plain tower's autograd takes a layer's input gradient when
         # anything before the layer needs a gradient, its weight gradient
         # when its kernel does.
@@ -364,8 +372,8 @@ class _Tower(torch.autograd.Function):
 
 def tower_cuda(x0: torch.Tensor, params: Params, run_stats: Tuple[torch.Tensor, torch.Tensor],
                train: bool, eps: float = 1e-5):
-    """The tower through csrc/tower.cu, differentiable in x0 and params
-    (train mode). CPU tensors take tower_ref."""
+    """The tower through csrc/tower.cu, differentiable in x0 and params in
+    train and eval mode. CPU tensors take tower_ref."""
     if x0.device.type == "cpu":
         return tower_ref(x0, params, run_stats, train, eps)
     kernels = [k.to(x0.dtype).contiguous() for k in params["kernels"]]

@@ -195,11 +195,33 @@ Phases, in order; any failure raises and the script exits non-zero:
               pretraining and in the bench suite, none in faithful; (d)
               synthetic_pipeline_demo at its defaults: results.csv and
               both plots
+ 16. study    the GT-free guard study and what it needs (study_phase): (a)
+              EXIF Orientation 1-8 in both TIFF byte orders spliced into
+              phase 15's JPEG frame, a PNG of it (_load_rgb) and a 16-bit
+              depth PNG (load_disp_vkitti), each read equal to numpy's
+              transform of the untagged read (the CPU tests tie the reads
+              to cv2); (b) the progressive JPEGs of tests/data/jpeg/
+              hash to PROGRESSIVE_JPEGS (cv2's pixels), the KITTI-size one
+              timed on the host beside the baseline decode of the same
+              frame; (c) the tower's eval-mode backward chain against
+              autograd through tower_ref in eval mode at (2, 320, 960) and
+              TOWER_TAIL, f32 on the plain chain's buffers and bf16 end to
+              end through tower_cuda, with phase 7's bands, 31 launches a
+              chain, timed by CUDA events at the probe's call (1, 320, 960)
+              f32 and at (2, 320, 960) bf16 beside the plain backward and
+              the module path's; (d) run_gtfree_guard_study with
+              STUDY_FLAGS at 320x960 on phase 15 (c)'s datasets, weights
+              and threshold, deterministic cuDNN: two CSV rows a config,
+              31 eval-mode tower backward launches (and 16 forward) a
+              probe for fused and vser, no tower launch in faithful, and
+              the fused run bitwise equal to the same adapt_streaming call
+              without the hook
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them holds the kernel table,
-whose "launches" count the served frames of phase 4 (kernels 1-4) or the
-adapt steps of phase 9 (the tower), "train_launches" the adapt steps of
+whose "launches" count the served frames of phase 4 (kernels 1-4), the
+adapt steps of phase 9 (the tower) or phase 16's probes (the tower's
+eval-mode backward chain, "tower_backward_eval"), "train_launches" the adapt steps of
 phase 9 for every kernel, "train11_launches" the launches per bare
 train step at batch 8 of phase 11, "pytree_launches" (with
 "backward_pytree_launches") those per bare pytree adapt step of phase 12
@@ -295,6 +317,19 @@ JPEG_FRAME_SHAPE = (375, 1242)
 JPEG_QUALITY = 95
 JPEG_FRAME_SHA256 = "5a47dc24f64049f5a33f5945f1c1fb0dd17b13f037fa4d3d55f911624881da55"
 JPEG_DECODES = 20
+# Phase 16 (b): progressive JPEGs written by cv2 (IMWRITE_JPEG_PROGRESSIVE)
+# and committed under tests/data/jpeg/, each with the SHA-256 of cv2's
+# decode (tests/test_torch_image_reads.py holds the files against cv2):
+# phase 15's frame at 4:2:0 quality 95 (the pixels of JPEG_FRAME_SHA256), an
+# odd-sized gray file and a 4:4:4 file with a restart interval of 2 MCUs.
+PROGRESSIVE_JPEGS = {
+    "frame_375x1242_420_q95_progressive.jpg":
+        "5a47dc24f64049f5a33f5945f1c1fb0dd17b13f037fa4d3d55f911624881da55",
+    "gray_37x53_q90_progressive.jpg":
+        "da4fe283cb096eb2c592a81295b5af39e0bb17dd71809a0200797a88257f916b",
+    "rgb_61x83_444_q85_rst2_progressive.jpg":
+        "384d087962022fbe7279c5dd3a0edb4f66ff28f6ad5958b83eaebdb2e93a8f64",
+}
 PAPER_FRAME_SHAPE = (375, 1242)
 PAPER_FRAMES = 12
 PAPER_ENVIRONMENTS = ("flying_to_vk01", "clone_to_campus")
@@ -834,12 +869,25 @@ def tower_flops(b, h, w) -> float:
                for d, (ci, co) in zip(DILATIONS, chans))
 
 
-def tower_phase(model_cpu, dev, seed, rows):
-    """Phase 7: the tower kernels against tower_ref at the training shape
-    and at TOWER_TAIL, then their times at the training shape."""
-    from adaptive_stereo_tpu_torch.ops.cuda import (
-        tower_backward_cuda, tower_cuda, tower_forward_cuda, tower_ref)
+def tower_bytes(b, h, w, itemsize=2):
+    """Bytes of the tower's forward and backward chains at (b, h, w) with
+    activations of itemsize bytes (the bound's bytes): per layer the
+    activations each chain must read and write once."""
+    n_pix = b * h * w
+    act_bytes = n_pix * itemsize  # one channel
+    fwd_bytes = n_pix * 4 * itemsize + (7 * 32 + 1) * act_bytes + 7 * 32 * act_bytes
+    bwd_bytes = act_bytes + n_pix * 4 * itemsize + 7 * 32 * act_bytes \
+        + (7 * 32 + 1) * act_bytes + n_pix * 4 * itemsize
+    return fwd_bytes, bwd_bytes
 
+
+def tower_setup(model_cpu, dev, seed):
+    """The refinement tower of model_cpu on dev: (base, run_stats, g,
+    inputs, params_for, grads). base holds its weights (kernels HWIO),
+    run_stats its running statistics; inputs(b, h, w) draws (x0, g_out)
+    from the seeded generator g; params_for(dt, requires_grad) gives the
+    weights rounded to dt; grads(fn, x, params, g_out) the gradients of
+    sum(fn(x, params) * g_out) in x and every weight."""
     ref = model_cpu.stereo_net.edge_aware_refinements[0]
     convs, bns = ref.tower_layers()
     with torch.no_grad():
@@ -874,9 +922,22 @@ def tower_phase(model_cpu, dev, seed, rows):
                                  [x] + params["kernels"] + params["biases"]
                                  + [params["gammas"], params["betas"]])
         return [t.float() for t in gs]
+    return base, run_stats, g, inputs, params_for, grads
 
-    names = ["dx0"] + [f"dW{p}" for p in range(8)] + [f"db{p}" for p in range(8)] + \
-        ["dgamma", "dbeta"]
+
+TOWER_GRAD_NAMES = (["dx0"] + [f"dW{p}" for p in range(8)] + [f"db{p}" for p in range(8)]
+                    + ["dgamma", "dbeta"])
+
+
+def tower_phase(model_cpu, dev, seed, rows):
+    """Phase 7: the tower kernels against tower_ref at the training shape
+    and at TOWER_TAIL, then their times at the training shape."""
+    from adaptive_stereo_tpu_torch.ops.cuda import (
+        tower_backward_cuda, tower_cuda, tower_forward_cuda, tower_ref)
+
+    ref = model_cpu.stereo_net.edge_aware_refinements[0]
+    base, run_stats, g, inputs, params_for, grads = tower_setup(model_cpu, dev, seed)
+    names = TOWER_GRAD_NAMES
     # db of the layers followed by a BatchNorm: 0 in exact arithmetic.
     bn_bias_grads = {f"db{p}" for p in range(7)}
     errs = {}
@@ -1054,11 +1115,7 @@ def tower_phase(model_cpu, dev, seed, rows):
             loss, ps, retain_graph=True, allow_unused=True))
         del loss_mod
     flops = tower_flops(b, h, w)
-    n_pix = b * h * w
-    act_bytes = n_pix * 2  # one bf16 channel
-    fwd_bytes = n_pix * 4 * 2 + (7 * 32 + 1) * act_bytes + 7 * 32 * act_bytes
-    bwd_bytes = act_bytes + n_pix * 4 * 2 + 7 * 32 * act_bytes + (7 * 32 + 1) * act_bytes \
-        + n_pix * 4 * 2
+    fwd_bytes, bwd_bytes = tower_bytes(b, h, w)
     log(f"[tower] (2,{h},{w}) bf16 train, kernels: forward {t_fwd}, device sum {d_fwd:.4f} ms; "
         f"backward {t_bwd}, device sum {d_bwd:.4f} ms. Plain chain (cuDNN F.conv2d + the "
         f"port's BN and LeakyReLU): forward {t_plain}, device sum {d_plain_fwd:.4f} ms; "
@@ -3849,6 +3906,302 @@ def paper_phase(seed, dev, rows, card, root):
         raise AssertionError("phase 15: " + "; ".join(failed))
 
 
+# Phase 16: numpy's transform of each EXIF Orientation (the CPU tests tie
+# the port's reads to cv2's, and data/exif.py's transforms to cv2's rotate
+# and flip); the GT-free study's flags (50 adapt steps, a probe every 25).
+NUMPY_ORIENTATIONS = {
+    1: lambda a: a, 2: lambda a: a[:, ::-1], 3: lambda a: np.rot90(a, 2), 4: lambda a: a[::-1],
+    5: lambda a: np.swapaxes(a, 0, 1), 6: lambda a: np.rot90(a, -1),
+    7: lambda a: np.rot90(np.swapaxes(a, 0, 1), 2), 8: lambda a: np.rot90(a, 1)}
+STUDY_FLAGS = ("--configs", "fused", "faithful", "vser", "--adapt_steps", "50", "--probe_hz",
+               "25")
+
+
+def exif_block(orientation: int, order: str) -> bytes:
+    """A TIFF block (byte order II or MM) whose IFD0 holds the Orientation."""
+    import struct
+
+    e = "<" if order == "II" else ">"
+    return (order.encode() + struct.pack(e + "HIH", 42, 8, 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
+
+
+def with_exif(data: bytes, block: bytes) -> bytes:
+    """A PNG or JPEG file with the EXIF block spliced in: a PNG eXIf chunk
+    after IHDR, or a JPEG APP1 segment after SOI."""
+    import struct
+
+    if data[:2] == b"\xff\xd8":
+        body = b"Exif\0\0" + block
+        return data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + data[2:]
+    chunk = (struct.pack(">I", len(block)) + b"eXIf" + block
+             + struct.pack(">I", zlib.crc32(b"eXIf" + block) & 0xFFFFFFFF))
+    return data[:33] + chunk + data[33:]  # the signature and IHDR take 33 bytes
+
+
+def study_phase(seed, dev, rows, card, model_cpu, root):
+    """Phase 16: the image reads' EXIF orientation and progressive JPEG on
+    the card's host, the tower's eval-mode backward chain, then the GT-free
+    guard study at 320x960 on phase 15 (c)'s work directory (root)."""
+    import dataclasses
+    import hashlib
+    import os
+
+    import adaptive_stereo_tpu_torch.engine.stream_driver as sd
+    from adaptive_stereo_tpu_torch.data import decode_jpeg, encode_jpeg, encode_png
+    from adaptive_stereo_tpu_torch.data.loaders import load_disp_vkitti
+    from adaptive_stereo_tpu_torch.data.stereo_dataset import _load_rgb
+    from adaptive_stereo_tpu_torch.ops.cuda import (tower_backward_cuda, tower_cuda,
+                                                    tower_forward_cuda, tower_ref)
+    from adaptive_stereo_tpu_torch.scripts import run_gtfree_guard_study as study
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    # (a) EXIF: Orientation 1-8 in both byte orders, in phase 15's JPEG frame,
+    # a PNG of it and a 16-bit depth PNG, against numpy's transform of the
+    # untagged read.
+    frame = jpeg_frame(seed)
+    files = {"jpeg": encode_jpeg(frame, quality=JPEG_QUALITY, subsampling="4:2:0"),
+             "png": encode_png(frame),
+             "depth": encode_png(np.random.RandomState(seed).randint(
+                 100, 65535, JPEG_FRAME_SHAPE).astype(np.uint16))}
+    path = os.path.join(root, "exif")
+    untagged = {}
+    for kind, data in files.items():
+        with open(path, "wb") as f:
+            f.write(data)
+        untagged[kind] = (load_disp_vkitti(path) if kind == "depth"
+                          else _load_rgb(path, uint8=True))
+    t0 = time.perf_counter()
+    wrong = []
+    for kind, data in files.items():
+        for order in ("II", "MM"):
+            for orientation in range(1, 9):
+                with open(path, "wb") as f:
+                    f.write(with_exif(data, exif_block(orientation, order)))
+                got = load_disp_vkitti(path) if kind == "depth" else _load_rgb(path, uint8=True)
+                want = NUMPY_ORIENTATIONS[orientation](untagged[kind])
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    wrong.append(f"{kind} {order} {orientation}")
+    log(f"[study] (a) EXIF Orientation 1-8, II and MM, in a {JPEG_FRAME_SHAPE[0]}x"
+        f"{JPEG_FRAME_SHAPE[1]} JPEG, a PNG of it (_load_rgb) and a 16-bit depth PNG "
+        f"(load_disp_vkitti): 48 reads equal to numpy's transform of the untagged read: "
+        f"{not wrong} ({time.perf_counter() - t0:.2f} s)")
+    if wrong:
+        failed.append(f"(a) EXIF reads differ from numpy's transform: {wrong}")
+
+    # (b) Progressive JPEG: the committed fixtures hash to cv2's pixels; the
+    # KITTI-size one is phase 15's frame, timed beside its baseline decode.
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+    progressive = {}
+    for name, want in PROGRESSIVE_JPEGS.items():
+        with open(os.path.join(fixtures, name), "rb") as f:
+            progressive[name] = f.read()
+        digest = hashlib.sha256(decode_jpeg(progressive[name]).tobytes()).hexdigest()
+        log(f"[study] (b) {name}: {len(progressive[name])} bytes, decoded sha256 {digest} "
+            f"(want {want})")
+        if digest != want:
+            failed.append(f"(b) {name}: the decoded hash differs from cv2's")
+    prog = progressive["frame_375x1242_420_q95_progressive.jpg"]
+    if hashlib.sha256(decode_jpeg(files["jpeg"]).tobytes()).hexdigest() != JPEG_FRAME_SHA256:
+        failed.append("(b) the baseline frame's hash differs from JPEG_FRAME_SHA256")
+    prog_ms, base_ms = [], []
+    for _ in range(JPEG_DECODES):
+        t0 = time.perf_counter()
+        decode_jpeg(prog)
+        prog_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        decode_jpeg(files["jpeg"])
+        base_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[study] (b) decode_jpeg of the {JPEG_FRAME_SHAPE[0]}x{JPEG_FRAME_SHAPE[1]} 4:2:0 "
+        f"frame, host ms, median of {JPEG_DECODES} in turns: progressive "
+        f"{statistics.median(prog_ms):.3f} (min {min(prog_ms):.3f}), baseline "
+        f"{statistics.median(base_ms):.3f} (min {min(base_ms):.3f}); {card}")
+
+    # (c) The tower's eval-mode backward chain against autograd through
+    # tower_ref in eval mode, with phase 7's train-mode bands.
+    base, run_stats, g, inputs, params_for, grads = tower_setup(model_cpu, dev, seed + 16)
+    names = TOWER_GRAD_NAMES
+    bf16_err = None
+    for shape in ((2, *DRIVER_SHAPE), TOWER_TAIL):
+        x0, g_out = inputs(*shape)
+        p_ref = params_for(torch.float32, requires_grad=True)
+        x_ref = x0.clone().requires_grad_()
+        g_ref = grads(lambda x, p: tower_ref(x, p, run_stats, False)[0], x_ref, p_ref, g_out)
+        # f32: the kernels' chain on the plain chain's buffers.
+        with torch.no_grad():
+            _, mu, var, xs, ys = tower_ref(x0, params_for(torch.float32), run_stats, False,
+                                           buffers=True)
+            before = tower_backward_cuda.launches
+            got = tower_backward_cuda(g_out, x0, [t.contiguous() for t in xs],
+                                      [t.contiguous() for t in ys],
+                                      [k.contiguous() for k in base["kernels"]], base["gammas"],
+                                      base["betas"], mu, var, train=False)
+            launches = tower_backward_cuda.launches - before
+        torch.cuda.synchronize()
+        flat = [got[0]] + list(got[1]) + list(got[2]) + [got[3], got[4]]
+        errs = [(rel_l2(a, r), n) for n, a, r in zip(names, flat, g_ref)]
+        log(f"[study] (c) eval backward f32 {shape} on the plain chain's buffers: {launches} "
+            f"launches; worst relative L2 error {max(errs)} (band {TOWER_F32_GRAD_L2})")
+        if launches != 31 or max(errs)[0] > TOWER_F32_GRAD_L2:
+            failed.append(f"(c) eval backward f32 {shape}: {launches} launches, {max(errs)}")
+        # bf16 end to end through tower_cuda's autograd against the plain bf16
+        # autograd, each against the f32 gradients.
+        dt = torch.bfloat16
+        xd = x0.to(dt)
+        p_k, p_p = params_for(dt, requires_grad=True), params_for(dt, requires_grad=True)
+        x_k, x_p = xd.clone().requires_grad_(), xd.clone().requires_grad_()
+        before = tower_backward_cuda.launches
+        g_k = grads(lambda x, p: tower_cuda(x, {**p, "kernels": [k.to(dt) for k in p["kernels"]]},
+                                            run_stats, False)[0], x_k, p_k, g_out)
+        launches = tower_backward_cuda.launches - before
+        g_p = grads(lambda x, p: tower_ref(x, {**p, "kernels": [k.to(dt) for k in p["kernels"]]},
+                                           run_stats, False)[0], x_p, p_p, g_out)
+        torch.cuda.synchronize()
+        if bf16_err is None:
+            bf16_err = (g_k[0] - g_p[0]).abs().max().item()
+        worst = max((rel_l2(a, r) - TOWER_BF16_FACTOR * rel_l2(pl, r), n, rel_l2(a, r),
+                     rel_l2(pl, r)) for n, a, pl, r in zip(names, g_k, g_p, g_ref))
+        log(f"[study] (c) eval backward bf16 {shape} through tower_cuda: {launches} launches; "
+            f"largest kernel error less {TOWER_BF16_FACTOR} x the plain bf16's, relative L2 "
+            f"vs f32: {worst[0]:.4g} ({worst[1]}: kernels {worst[2]:.4g}, plain "
+            f"{worst[3]:.4g}; band {TOWER_F32_GRAD_L2})")
+        if launches != 31 or worst[0] > TOWER_F32_GRAD_L2:
+            failed.append(f"(c) eval backward bf16 {shape}: {launches} launches, {worst}")
+    # Times by CUDA events: at the probe's call (batch 1, 320x960, f32, the
+    # study's dtype) and beside phase 7's train chain (batch 2, bf16). The
+    # plain backward and the module path's (cuDNN) as device sums.
+    times = {}
+    ref = model_cpu.stereo_net.edge_aware_refinements[0]
+    for b, dt in ((1, torch.float32), (2, torch.bfloat16)):
+        h, w = DRIVER_SHAPE
+        x0, g_out = inputs(b, h, w)
+        xd = x0.to(dt)
+        pk = {**params_for(dt), "kernels": [k.to(dt).contiguous() for k in base["kernels"]]}
+        with torch.no_grad():
+            _, mu, var, xs, ys = tower_forward_cuda(xd, pk["kernels"], pk["biases"],
+                                                    pk["gammas"], pk["betas"], run_stats, False)
+        bwd = lambda: tower_backward_cuda(g_out, xd, xs, ys, pk["kernels"], pk["gammas"],
+                                          pk["betas"], mu, var, train=False)
+        p_req = params_for(dt, requires_grad=True)
+        x_req = xd.clone().requires_grad_()
+        leaves = [x_req] + p_req["kernels"] + p_req["biases"] + [p_req["gammas"],
+                                                                p_req["betas"]]
+        loss = (tower_ref(x_req, {**p_req, "kernels": [k.to(dt) for k in p_req["kernels"]]},
+                          run_stats, False)[0].float() * g_out).sum()
+        mod = copy.deepcopy(ref).to(dev).eval()
+        mod.dtype, mod.fused_tower = (None if dt == torch.float32 else dt), False
+        coarse_disp = torch.rand(b, h // 16, w // 16, generator=g, device=dev) * 4
+        loss_mod = (mod(coarse_disp, x0[..., 1:]) * g_out).sum()
+        mod_params = list(mod.parameters())
+        t = time_ms(bwd, calls=5)
+        plain = device_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True))
+        module = device_ms(lambda: torch.autograd.grad(loss_mod, mod_params, retain_graph=True,
+                                                       allow_unused=True))
+        flops = 2 * tower_flops(b, h, w)
+        b_ms, b_by = bound(tower_bytes(b, h, w, torch.finfo(dt).bits // 8)[1], flops,
+                           "f32_cuda_core" if dt == torch.float32 else "bf16_tensor")
+        times[(b, dt)] = (t, plain, module, b_ms, b_by)
+        log(f"[study] (c) eval backward chain ({b},{h},{w}) {dt}: kernels {t}; plain "
+            f"(tower_ref autograd) device sum {plain:.4f} ms; module path (cuDNN) backward "
+            f"alone, device sum {module:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{flops / 1e9:.2f} GFLOP); {card}")
+        del loss, loss_mod
+
+    # (d) The study at 320x960 on phase 15 (c)'s datasets, pretrained weights
+    # and threshold, each config's launches counted, and the probes' own.
+    synth = os.path.join(root, "synth")
+    out = os.path.join(root, "study")
+    h, w = DRIVER_SHAPE
+    reset, counts = launch_counter({row["name"]: row["wrapper"] for row in rows})
+    per_run, calls, probe_launches = {}, {}, {}
+    adapt_streaming, probe = sd.adapt_streaming, study.probe
+
+    def counted(cfg, *a, **kw):
+        reset()
+        probe_launches[cfg.model_name] = []
+        result = adapt_streaming(cfg, *a, **kw)
+        per_run[cfg.model_name] = counts()
+        calls[cfg.model_name] = (cfg, a, kw, result)
+        return result
+
+    def counted_probe(model, *a, **kw):
+        before = (tower_backward_cuda.launches, tower_forward_cuda.launches)
+        values = probe(model, *a, **kw)
+        name = list(probe_launches)[-1]
+        probe_launches[name].append((tower_backward_cuda.launches - before[0],
+                                     tower_forward_cuda.launches - before[1]))
+        return values
+
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    sd.adapt_streaming, study.probe = counted, counted_probe
+    try:
+        rc = study.main(["--work", synth, "--artifacts", os.path.join(synth, "artifacts"),
+                         "--out", out, "--height", str(h), "--width", str(w), *STUDY_FLAGS,
+                         "--device", dev.type])
+    finally:
+        sd.adapt_streaming, study.probe = adapt_streaming, probe
+    study_s = time.perf_counter() - t0
+    if rc != 0:
+        failed.append(f"(d) run_gtfree_guard_study exited {rc}")
+    # The same fused run without the hook ends on the same bits.
+    cfg, a, kw, probed = calls["gtfree_fused"]
+    t0 = time.perf_counter()
+    bare = adapt_streaming(dataclasses.replace(cfg, model_name="gtfree_fused_no_probe"), *a,
+                           **{**kw, "probe_hook": None})
+    bare_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    ss_p, ss_b = probed["stream_state"], bare["stream_state"]
+    same = all(torch.equal(x, y) for x, y in zip(list(ss_p.params) + list(ss_p.buffers),
+                                                  list(ss_b.params) + list(ss_b.buffers)))
+    log(f"[study] (d) the fused run with and without the probe hook: parameters and running "
+        f"statistics bitwise equal {same} ({probed['gradient_updates']} / "
+        f"{bare['gradient_updates']} updates; the run without the hook {bare_s:.1f} s)")
+    if not same or probed["gradient_updates"] != bare["gradient_updates"]:
+        failed.append("(d) the probe hook changed the fused run's trajectory")
+    eval_launches = 0
+    for cname in ("fused", "faithful", "vser"):
+        name = f"gtfree_{cname}"
+        got, pl = per_run.get(name, {}), probe_launches.get(name, [])
+        log(f"[study] (d) {cname}: launches " + ", ".join(f"{n}={c}" for n, c in got.items())
+            + f"; per probe (tower backward, tower forward): {pl}")
+        csv_path = os.path.join(out, f"probes_{cname}.csv")
+        if not os.path.exists(csv_path):
+            failed.append(f"(d) {cname}: no probes_{cname}.csv")
+            continue
+        with open(csv_path) as f:
+            lines = f.read().splitlines()
+        log(f"[study] (d) {csv_path.split(os.sep)[-1]}: " + " | ".join(lines))
+        values = np.loadtxt(csv_path, delimiter=",", skiprows=1, ndmin=2)
+        if lines[0] != study.CSV_HEADER or values.shape != (2, 8) or \
+                not np.isfinite(values).all():
+            failed.append(f"(d) {cname}: the CSV is not two finite rows under the header")
+        fused = cname != "faithful"
+        if len(pl) != 2 or any(bwd != (31 if fused else 0) or fwd != (16 if fused else 0)
+                               for bwd, fwd in pl):
+            failed.append(f"(d) {cname}: tower launches per probe {pl}")
+        if not fused and (got.get("tower_forward") or got.get("tower_backward")):
+            failed.append(f"(d) faithful launched the tower: {got}")
+        if fused:
+            eval_launches += sum(bwd for bwd, _ in pl)
+        require_launches(f"study {cname}", got, absent=("coarse_head",) + (
+            () if fused else ("tower_forward", "tower_backward")))
+    log(f"[study] (d) run_gtfree_guard_study {' '.join(STUDY_FLAGS)} at {h}x{w}: {study_s:.1f} s")
+
+    t, plain, module, b_ms, b_by = times[(1, torch.float32)]
+    rows.append(dict(name="tower_backward_eval", route="cuda",
+                     source="adaptive_stereo_tpu_torch/csrc/tower.cu",
+                     replaces="adaptive_stereo_tpu/ops/pallas/tower.py:501",
+                     wrapper=tower_backward_cuda, launches=eval_launches, max_abs_err=bf16_err,
+                     ms=t.ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=module))
+    log(f"[study] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+
+
 def expect_launches(label, got, want):
     """Fail unless the launch counts are exactly `want`."""
     if got != want:
@@ -4121,6 +4474,9 @@ def main() -> int:
     # Phase 15: JPEG frames and the paper protocol's runners.
     paper_root = tempfile.TemporaryDirectory(prefix="chip_smoke_paper_")
     paper_phase(args.seed, dev, rows, card, paper_root.name)
+    # Phase 16: EXIF orientation and progressive JPEG, the tower's eval-mode
+    # backward, the GT-free guard study on phase 15 (c)'s work directory.
+    study_phase(args.seed, dev, rows, card, model_cpu, paper_root.name)
     paper_root.cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "train_launches",
             "train11_launches", "pytree_launches", "fleet_launches", "max_abs_err",

@@ -543,14 +543,14 @@ def test_kernel_path_counts_the_plain_path(monkeypatch, x0_grad):
             y7, mu, var, xs, ys = tower_ref(x0, p, run_stats, train, eps, buffers=True)
         return y7, mu, var, xs, ys
 
-    def tower_bwd(g, x0, xs, ys, kernels, gammas, betas, mu, var, eps):
+    def tower_bwd(g, x0, xs, ys, kernels, gammas, betas, mu, var, eps, train=True):
         with work.uncounted(), torch.enable_grad():
             leaves = [x0.detach().requires_grad_(), gammas.detach().requires_grad_(),
                       betas.detach().requires_grad_()]
             ks = [k.detach().requires_grad_() for k in kernels]
             bs = [torch.zeros(k.shape[-1], requires_grad=True) for k in kernels]
             y = tower_ref(leaves[0], {"kernels": ks, "biases": bs, "gammas": leaves[1],
-                                      "betas": leaves[2]}, (mu, var), True, eps)[0]
+                                      "betas": leaves[2]}, (mu, var), train, eps)[0]
             grads = torch.autograd.grad(y, leaves + ks + bs, g)
         return grads[0], list(grads[3:11]), list(grads[11:]), grads[1], grads[2]
     monkeypatch.setattr(tower_mod, "tower_forward_cuda", tower_fwd)

@@ -7,8 +7,10 @@ on the CPU:
   optimized Huffman tables, gray, 4:4:0 and 4:1:1 sampling, noise at
   quality 100 (the IDCT's range limit), and files written by PIL and
   imageio (the JAX drill's writer): exact in every mode;
-- progressive, CMYK and non-JPEG bytes raise ValueError naming what they
-  are; nothing falls back;
+- lossless and arithmetic-coded files (a baseline file's SOF0 rewritten to
+  SOF3 and SOF9), CMYK and non-JPEG bytes raise ValueError naming what
+  they are; nothing falls back (progressive files decode:
+  tests/test_torch_image_reads.py);
 - the port's encoder: cv2 decodes its bytes to exactly the port's decode,
   at a PSNR of at least 30 dB against the source at quality 75 and within
   1 dB of PIL's at the same settings (printed);
@@ -103,8 +105,11 @@ def test_decode_equals_cv2_on_pil_files(writer, tmp_path):
 
 def test_unsupported_jpegs_raise():
     frame = chip_smoke.jpeg_frame(1, (24, 40))
-    with pytest.raises(ValueError, match=r"progressive \(SOF2\)"):
-        decode_jpeg(_cv2_bytes(frame, cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    baseline = _cv2_bytes(frame)
+    sof = baseline.index(b"\xff\xc0")
+    for marker, what in ((0xC3, r"lossless \(SOF3\)"), (0xC9, r"arithmetic coding \(SOF9\)")):
+        with pytest.raises(ValueError, match=what):
+            decode_jpeg(baseline[:sof + 1] + bytes([marker]) + baseline[sof + 2:])
     buf = io.BytesIO()
     Image.fromarray(frame).convert("CMYK").save(buf, "JPEG")
     with pytest.raises(ValueError, match="4 components"):

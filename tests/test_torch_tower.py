@@ -5,15 +5,18 @@ on the port's plain layout.
 
 - forward against tower_pallas in interpret mode (train and eval);
 - backward against jax.grad of the kernel's golden twin _tower_ref_raw
-  (dx0, every dW and db, dgamma, dbeta), and against tower_pallas's own
-  custom VJP in interpret mode;
+  (dx0, every dW and db, dgamma, dbeta) in train and in eval mode (the
+  running statistics' affine map), and against tower_pallas's own custom
+  VJP in interpret mode;
 - tower_cuda on CPU tensors is tower_ref; on any other device it never takes
   the plain version;
 - the CUDA chains' launch sequence (tower_forward_cuda, tower_backward_cuda)
   run on CPU tensors against a stand-in library that records the C calls:
   launch counts, dilations and channels per layer, the partial-sum rows and
-  columns handed to each reduction; and the transposed-tap weights of the
-  input gradient against autograd of F.conv2d.
+  columns handed to each reduction, in eval mode the running statistics
+  and zero batch-mean terms handed to grad_y; the autograd Function's
+  eval-mode backward runs that chain; and the transposed-tap weights of
+  the input gradient against autograd of F.conv2d.
 
 The JAX side works on the 2x2 space-to-depth layout; space_to_depth /
 depth_to_space carry inputs and results across (exact permutations).
@@ -32,6 +35,7 @@ dgamma/dbeta and dW0 column and the dx0 of the pixels below it by up to
 """
 
 import contextlib
+import ctypes
 import time
 
 import jax
@@ -146,9 +150,9 @@ def test_tower_ref_forward_matches_raw_twin_and_pallas(train):
         np.testing.assert_array_equal(var.numpy(), a["rvars"])
 
 
-def _port_grads(a, g_out):
+def _port_grads(a, g_out, train=True):
     x0, params, run_stats = _torch_args(a, requires_grad=True)
-    y, _, _ = tower_cuda(x0, params, run_stats, True)
+    y, _, _ = tower_cuda(x0, params, run_stats, train)
     (y * torch.from_numpy(g_out)).sum().backward()
     return ([x0.grad] + [k.grad for k in params["kernels"]] + [b.grad for b in params["biases"]]
             + [params["gammas"].grad, params["betas"].grad])
@@ -188,6 +192,23 @@ def test_tower_ref_backward_matches_raw_twin_autodiff():
     want = _jax_grads(a, g_out, lambda xs, ks, bs, gam, bet: _tower_ref_raw(
         xs, ks, bs, gam, bet, rm, rv, True)[0])
     _assert_grads_close(_port_grads(a, g_out), want)
+
+
+def test_tower_ref_eval_backward_matches_raw_twin_autodiff():
+    """Eval mode: BatchNorm is the running statistics' affine map, so the
+    gradient has no batch-mean terms; dgamma and dbeta are sums over the
+    running-statistics xhat (the gradient the GT-free study's probe takes
+    through an eval forward)."""
+    a = _inputs(7)
+    g_out = np.random.RandomState(8).randn(B, H, W, 1).astype(np.float32)
+    rm, rv = jnp.asarray(a["rmeans"]), jnp.asarray(a["rvars"])
+    want = _jax_grads(a, g_out, lambda xs, ks, bs, gam, bet: _tower_ref_raw(
+        xs, ks, bs, gam, bet, rm, rv, False)[0])
+    _assert_grads_close(_port_grads(a, g_out, train=False), want)
+    # Not the train-mode gradient: the batch terms move every dgamma.
+    train = _port_grads(a, g_out, train=True)
+    assert np.abs(train[-2].numpy() - np.asarray(want[-2])).max() > 1e-2 * np.abs(
+        np.asarray(want[-2])).max()
 
 
 def test_tower_ref_backward_matches_pallas_custom_vjp():
@@ -353,6 +374,74 @@ def test_tower_backward_launch_sequence(fake_library, b, h, w, dtype):
         assert args[9:11] == (b * h * w * 32, 32)
     assert len(partials) == 9
     assert dx0.shape == (b, h, w, 4) and dgamma.shape == dbeta.shape == (7, 32)
+
+
+class _VectorReadingLibrary(_FakeLibrary):
+    """_FakeLibrary that also reads grad_y's six f32 vectors (mu, inv, nrm,
+    shift, m1, m2) at the launch, while the wrapper holds them."""
+
+    def __init__(self):
+        super().__init__()
+        self.vectors = []
+
+    def stereo_tower_grad_y(self, *args):
+        self.calls.append(("stereo_tower_grad_y", args))
+        self.vectors.append([np.ctypeslib.as_array((ctypes.c_float * 32).from_address(ptr)).copy()
+                             for ptr in args[2:8]])
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tower_eval_backward_launch_sequence(fake_library, monkeypatch, dtype):
+    """train=False: the same 31 launches, and each layer's grad_y gets the
+    running statistics and their BN terms, with m1 = m2 = 0 (no batch-mean
+    terms): gy = nrm * gl."""
+    lib = _VectorReadingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    b, h, w = LAUNCH_SHAPES[1]
+    x0, kernels, _, _, _, _ = _chain_args(b, h, w, dtype)
+    rng = np.random.RandomState(9)
+    gammas = torch.from_numpy(1 + 0.1 * rng.randn(7, 32).astype(np.float32))
+    betas = torch.from_numpy(0.1 * rng.randn(7, 32).astype(np.float32))
+    rmean = torch.from_numpy(0.2 * rng.rand(7, 32).astype(np.float32))
+    rvar = torch.from_numpy(1 + rng.rand(7, 32).astype(np.float32))
+    xs = [torch.zeros(b, h, w, 32, dtype=dtype) for _ in range(7)]
+    ys = [torch.zeros(b, h, w, 32, dtype=dtype) for _ in range(7)] + [
+        torch.zeros(b, h, w, 1, dtype=dtype)]
+    before = tower_backward_cuda.launches
+    tower_backward_cuda(torch.zeros(b, h, w, 1), x0, xs, ys, kernels, gammas, betas, rmean,
+                        rvar, 1e-5, train=False)
+    names = [name for name, _ in lib.calls]
+    layer = ["stereo_tower_wgrad", "stereo_tower_conv", "stereo_tower_sums"]
+    assert names == layer + (["stereo_tower_grad_y"] + layer) * 7
+    assert tower_backward_cuda.launches - before == 31
+    assert len(lib.vectors) == 7
+    for p, (mu, inv, nrm, shift, m1, m2) in zip(range(6, -1, -1), lib.vectors):
+        want_inv = torch.rsqrt(rvar[p] + 1e-5)
+        np.testing.assert_array_equal(mu, rmean[p].numpy())
+        np.testing.assert_array_equal(inv, want_inv.numpy())
+        np.testing.assert_array_equal(nrm, (gammas[p] * want_inv).numpy())
+        np.testing.assert_array_equal(shift, (betas[p] - rmean[p] * (gammas[p] * want_inv)).numpy())
+        assert not m1.any() and not m2.any()
+
+
+def test_tower_autograd_function_runs_the_eval_backward_chain(fake_library):
+    """The autograd Function tower_cuda applies to CUDA tensors, driven on
+    CPU tensors against the stand-in library: in eval mode its backward
+    runs the 31-launch chain (it used to raise NotImplementedError), after
+    an 8-launch forward."""
+    lib, _ = fake_library
+    b, h, w = LAUNCH_SHAPES[0]
+    x0, kernels, biases, gammas, betas, run_stats = _chain_args(b, h, w, torch.float32)
+    leaves = [t.requires_grad_() for t in [x0, gammas, betas, *kernels, *biases]]
+    fwd, bwd = tower_forward_cuda.launches, tower_backward_cuda.launches
+    y7, mu, var = tower_mod._Tower.apply(x0, run_stats[0], run_stats[1], False, 1e-5, gammas,
+                                         betas, *kernels, *biases)
+    assert tower_forward_cuda.launches - fwd == 8
+    grads = torch.autograd.grad(y7.sum(), leaves)
+    assert tower_backward_cuda.launches - bwd == 31
+    assert [g.shape for g in grads] == [t.shape for t in leaves]
+    assert [name for name, _ in lib.calls].count("stereo_tower_grad_y") == 7
 
 
 def test_tower_backward_refuses_a_buffer_off_a_16_byte_boundary(fake_library):
